@@ -1,0 +1,173 @@
+"""Public Graphical Join API of the port — a thin facade over plan + execute.
+
+    gj = GraphicalJoin(catalog, query)            # device="cuda" by default
+    gfjs = gj.run()         # encode -> plan -> eliminate -> generate (device)
+    print(gj.explain())     # order, per-step estimates, backends, timings
+    result = gj.desummarize(gfjs)                 # O(|Q|), on the device
+
+Same surface as ``repro.core.api.GraphicalJoin`` for the monolithic path;
+``device`` names where the two device phases run (``"cpu"`` runs the plain
+PyTorch versions of the kernels, and ``"cuda"`` without a card raises).
+Storage (``store``/``load``) and the summary algebra (``aggregate``) are
+later slices of the port (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.elimination import Generator
+from repro_torch.core.gfjs import GFJS, desummarize_range, stream_desummarize
+from repro_torch.plan.executor import Executor
+from repro_torch.plan.ir import PhysicalPlan
+from repro_torch.relational.encoding import EncodedQuery
+from repro_torch.relational.query import JoinQuery
+from repro_torch.relational.table import Catalog
+
+
+class GraphicalJoin:
+    """End-to-end driver for the Graphical Join.
+
+    ``elimination_order`` forces an order (bypassing the search);
+    ``planner`` selects the search mode ("cost" or "min_fill"); ``plan``
+    injects a pre-compiled :class:`PhysicalPlan`; ``generation_backend``
+    pins GFJS generation to "numpy" (the dynamic-shape oracle) or "torch"
+    (the device-resident frontier, the default); ``hybrid`` controls
+    hypertree-decomposed GJ/WCOJ execution on cyclic queries;
+    ``corrections`` seeds the cost model with calibration ratios;
+    ``tracer`` / ``metrics`` plug a :class:`repro_torch.obs.trace.Tracer` /
+    :class:`repro_torch.obs.metrics.MetricsRegistry` into every phase.
+    ``partitions`` > 1 and ``message_cache`` are not ported yet and raise
+    :class:`NotImplementedError` when the plan is built.
+    """
+
+    def __init__(
+        self,
+        catalog: Catalog,
+        query: JoinQuery,
+        *,
+        elimination_order: Optional[Sequence[str]] = None,
+        early_projection: bool = True,
+        planner: str = "cost",
+        plan: Optional[PhysicalPlan] = None,
+        generation_backend: Optional[str] = None,
+        partitions: Optional[int] = None,
+        hybrid: Optional[bool] = None,
+        tracer=None,
+        metrics=None,
+        message_cache=None,
+        corrections: Optional[Dict[str, float]] = None,
+        device: Union[str, torch.device] = "cuda",
+    ) -> None:
+        self.catalog = catalog
+        self.query = query
+        self._executor = Executor(
+            catalog, query,
+            elimination_order=elimination_order,
+            early_projection=early_projection,
+            planner=planner,
+            plan=plan,
+            generation_backend=generation_backend,
+            partitions=partitions,
+            hybrid=hybrid,
+            tracer=tracer,
+            metrics=metrics,
+            message_cache=message_cache,
+            corrections=corrections,
+            device=device,
+        )
+
+    # -- executor state, exposed under the reference's names ---------------
+    @property
+    def timings(self) -> Dict[str, float]:
+        return self._executor.timings
+
+    @property
+    def enc(self) -> Optional[EncodedQuery]:
+        return self._executor.enc
+
+    @property
+    def generator(self) -> Optional[Generator]:
+        return self._executor.generator
+
+    @property
+    def device(self) -> torch.device:
+        return self._executor.device
+
+    # configuration writes pass through to the executor and discard a
+    # pending plan, so the next phase re-plans
+    @property
+    def elimination_order(self) -> Optional[Sequence[str]]:
+        return self._executor.elimination_order
+
+    @elimination_order.setter
+    def elimination_order(self, value: Optional[Sequence[str]]) -> None:
+        self._executor.elimination_order = value
+        self._invalidate_plan()
+
+    @property
+    def early_projection(self) -> bool:
+        return self._executor.early_projection
+
+    @early_projection.setter
+    def early_projection(self, value: bool) -> None:
+        self._executor.early_projection = value
+        self._invalidate_plan()
+
+    def _invalidate_plan(self) -> None:
+        ex = self._executor
+        if not ex._forced_plan:
+            ex.plan = None
+            ex.logical = None
+            ex.generator = None
+
+    # -- phases ------------------------------------------------------------
+    def build_model(self) -> "GraphicalJoin":
+        """Encode; calling it again clears every downstream product."""
+        self._executor.build_model()
+        return self
+
+    def plan(self) -> PhysicalPlan:
+        """The physical plan (computed on first use, then pinned)."""
+        return self._executor.build_plan()
+
+    def build_generator(self) -> "GraphicalJoin":
+        self._executor.build_generator()
+        return self
+
+    def summarize(self) -> GFJS:
+        return self._executor.summarize()
+
+    # -- convenience -------------------------------------------------------
+    def join_size(self) -> int:
+        """|Q| without touching the data again (sum of the root marginal)."""
+        if self.generator is None:
+            self.build_generator()
+        return self.generator.join_size
+
+    def run(self) -> GFJS:
+        """build_model -> plan -> build_generator -> summarize."""
+        return self.summarize()
+
+    def explain(self, *, analyze: bool = False) -> str:
+        """Render the plan, annotated with any timings measured so far."""
+        return self._executor.explain(analyze=analyze)
+
+    def desummarize(self, gfjs: GFJS, *, decode: bool = True
+                    ) -> Dict[str, Union[torch.Tensor, np.ndarray]]:
+        """All |Q| rows: numpy raw values, or (``decode=False``) int32 code
+        tensors kept on the device."""
+        return self._executor.desummarize(gfjs, decode=decode)
+
+    def desummarize_range(self, gfjs: GFJS, lo: int, hi: int, *,
+                          decode: bool = True) -> Dict[str, np.ndarray]:
+        """Rows [lo, hi) on the host (numpy)."""
+        return desummarize_range(gfjs, lo, hi, decode=decode)
+
+    def stream(self, gfjs: GFJS, chunk_rows: int = 1 << 20, *,
+               decode: bool = True):
+        """The result in host row chunks (numpy)."""
+        return stream_desummarize(gfjs, chunk_rows, decode=decode)
