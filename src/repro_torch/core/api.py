@@ -4,16 +4,18 @@
     gfjs = gj.run()         # encode -> plan -> eliminate -> generate (device)
     print(gj.explain())     # order, per-step estimates, backends, timings
     result = gj.desummarize(gfjs)                 # O(|Q|), on the device
+    n = gj.aggregate("count", by=["A"], gfjs=gfjs)  # O(runs), from the GFJS
+    gj.store(gfjs, "q.gfjs"); gfjs = GraphicalJoin.load("q.gfjs")
 
-Same surface as ``repro.core.api.GraphicalJoin`` for the monolithic path;
-``device`` names where the two device phases run (``"cpu"`` runs the plain
-PyTorch versions of the kernels, and ``"cuda"`` without a card raises).
-Storage (``store``/``load``) and the summary algebra (``aggregate``) are
-later slices of the port (ROADMAP.md queue 1).
+Same surface as ``repro.core.api.GraphicalJoin`` for the monolithic path,
+the summary algebra and storage; ``device`` names where the device phases
+and the aggregates' reductions run (``"cpu"`` runs the plain PyTorch
+versions of the kernels, and ``"cuda"`` without a card raises).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.core.elimination import Generator
 from repro_torch.core.gfjs import GFJS, desummarize_range, stream_desummarize
+from repro_torch.core.storage import load_gfjs, save_gfjs
 from repro_torch.plan.executor import Executor
 from repro_torch.plan.ir import PhysicalPlan
 from repro_torch.relational.encoding import EncodedQuery
@@ -171,3 +174,56 @@ class GraphicalJoin:
                decode: bool = True):
         """The result in host row chunks (numpy)."""
         return stream_desummarize(gfjs, chunk_rows, decode=decode)
+
+    # -- summary algebra and storage ---------------------------------------
+    def aggregate(self, op: str, var: Optional[str] = None, *,
+                  by: Optional[Sequence[str]] = None,
+                  where: Optional[Dict] = None,
+                  gfjs: Optional[GFJS] = None):
+        """Answer an aggregate from the summary — O(runs), never O(|Q|).
+
+            gj.aggregate("count")
+            gj.aggregate("sum", "D", by=["A"], where={"B": "b1"})
+
+        ``op``: count / sum / mean / min / max / distinct / count_distinct.
+        Pass a previously computed ``gfjs`` to reuse it (the compute-and-
+        reuse path); otherwise the pipeline runs (or re-runs) first.  The
+        reductions run on ``self.device``; the summary-side time lands in
+        ``timings["aggregate"]``.
+        """
+        from repro_torch.summary.algebra import SummaryFrame
+        if gfjs is None:
+            gfjs = self.run()
+        t0 = time.perf_counter()
+        frame = SummaryFrame.of(gfjs, self.device)
+        if where:
+            frame = frame.filter(where)
+        if by:
+            if op == "count":
+                out = frame.group_by(list(by), count="count")
+            else:
+                if var is None:
+                    raise ValueError(f"aggregate {op!r} needs a variable")
+                out = frame.group_by(list(by), **{op: (op, var)})
+        elif op == "count":
+            out = frame.count()
+        elif op in ("sum", "mean", "min", "max", "distinct", "count_distinct"):
+            if var is None:
+                raise ValueError(f"aggregate {op!r} needs a variable")
+            out = getattr(frame, op)(var)
+        else:
+            raise ValueError(f"unknown aggregate op {op!r}")
+        self.timings["aggregate"] = time.perf_counter() - t0
+        return out
+
+    def store(self, gfjs: GFJS, path: str) -> int:
+        """Write the summary (the reference's file format); bytes on disk."""
+        t0 = time.perf_counter()
+        n = save_gfjs(gfjs, path)
+        self.timings["store"] = time.perf_counter() - t0
+        return n
+
+    @staticmethod
+    def load(path: str) -> GFJS:
+        """A summary written by ``store`` (by either package)."""
+        return load_gfjs(path)

@@ -1,10 +1,22 @@
-"""Torch engine for GJ's two device phases: desummarization and generation.
+"""Torch engine for GJ's device phases.
 
-Port of ``src/repro/core/engine_jax.py`` (``desummarize_jax`` and the
-device-resident ``generate_gfjs_jax``).  Both phases rest on one kernel,
-the fused RLE expansion ``kernels/expand_many.py`` (CUDA on the card, the
-plain PyTorch version for CPU tensors), launched once per GFJS level when
-desummarizing and once per psi when generating.
+Port of ``src/repro/core/engine_jax.py``:
+
+* desummarization and device-resident generation (``desummarize_jax``,
+  ``generate_gfjs_jax``) rest on the fused RLE expansion
+  ``kernels/expand_many.py``, launched once per GFJS level when
+  desummarizing and once per psi when generating;
+* quantitative learning on the device (``build_factor_jax``): sort ->
+  ``kernels/run_boundaries.py`` -> cumsum -> ``kernels/mul_segsum.py``;
+* the summary algebra's reductions (``segment_weighted_sum``,
+  ``weighted_total``) on ``mul_segsum``, and its device GROUP BY sort
+  (``group_runs_device``) on a stable ``torch.sort`` and
+  ``run_boundaries``.
+
+Each kernel is CUDA on the card and its plain PyTorch version for CPU
+tensors.  Unlike the reference, whose Pallas ``mul_segsum`` sums in f32
+and is exact only below 2^24, the port's kernel accumulates in int64 /
+float64: every summary reduction takes it, and no exactness guard exists.
 
 Every entry point takes an explicit ``device``: ``"cuda"`` (the default)
 raises when no card is present, and only ``"cpu"`` runs the plain
@@ -21,7 +33,7 @@ its span with the reason: a visible capability check, not a hidden one.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,13 +41,15 @@ import torch
 from repro_torch.core.elimination import Generator, Psi
 from repro_torch.core.gfjs import GFJS, LevelSummary
 from repro_torch.core.gfjs import generate_gfjs as generate_gfjs_numpy
-from repro_torch.core.potentials import INT, pack_keys
+from repro_torch.core.potentials import INT, Factor, pack_keys
 from repro_torch.kernels import ops
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import span as _span
 from repro_torch.relational.encoding import Domain
 
 I32_MAX = (1 << 31) - 1
+# run counts below this: the host argsort beats device round-trips
+GROUP_DEVICE_MIN_RUNS = 1 << 15
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -64,6 +78,148 @@ def _upload(a: np.ndarray, dtype: np.dtype, dev: torch.device) -> torch.Tensor:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(INT)
+
+
+def _uploads(dev: torch.device, *arrays: Tuple[np.ndarray, np.dtype]
+             ) -> List[torch.Tensor]:
+    """Host arrays to the device, under one ``engine:upload`` span."""
+    with _span("engine:upload", cat="transfer") as sp:
+        out = [_upload(a, dt, dev) for a, dt in arrays]
+        sp.set(bytes=sum(t.numel() * t.element_size() for t in out))
+    return out
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
+    """A device result to the host, under an ``engine:download`` span
+    (which also waits for the kernels that produce it)."""
+    with _span("engine:download", cat="transfer",
+               bytes=t.numel() * t.element_size()):
+        return t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# quantitative learning (potential build)
+# ---------------------------------------------------------------------------
+
+def build_factor(cols: Dict[str, np.ndarray], sizes: Dict[str, int],
+                 *, device: Union[str, torch.device] = "cuda") -> Factor:
+    """GROUP BY count on the device: pack -> sort -> ``group_by_count``
+    (run_boundaries -> cumsum -> mul_segsum).  Equal to
+    ``Factor.from_columns``.
+
+    Keys are packed on the host, as in the reference; a key space whose
+    packed ranks pass int32 takes ``Factor.from_columns`` instead, counted
+    in ``engine.numpy_fallbacks``.  Counts are int64.
+    """
+    dev = resolve_device(device)
+    names = tuple(cols.keys())
+    keys = np.stack([np.asarray(cols[v], dtype=INT) for v in names], axis=1)
+    sz = tuple(int(sizes[v]) for v in names)
+    n = keys.shape[0]
+    if n == 0:
+        return Factor(names, keys, np.zeros(0, INT), np.zeros(0, INT), sz)
+    with _span("engine:build_factor", cat="build", backend="torch",
+               device=True, rows=n) as sp:
+        try:
+            packed = pack_keys(keys, sz)
+            packable = bool(np.all(packed <= I32_MAX))
+        except OverflowError:
+            packable = False
+        if not packable:
+            count_numpy_fallback(sp, "packed keys past int32")
+            return Factor.from_columns(cols, sizes)
+        (packed_t,) = _uploads(dev, (packed, np.int32))
+        sorted_keys = torch.sort(packed_t).values
+        del packed_t
+        _, counts, num = ops.group_by_count(sorted_keys)
+        # unique packed keys = sorted keys at the group ends
+        upacked = _download(sorted_keys[torch.cumsum(counts, 0) - 1])
+        counts = _download(counts)
+    ukeys = np.empty((num, len(names)), dtype=INT)
+    rem = upacked.astype(INT)
+    for j in range(len(names) - 1, -1, -1):
+        s = max(sz[j], 1)
+        ukeys[:, j] = rem % s
+        rem = rem // s
+    return Factor(names, ukeys, counts.astype(INT), np.ones(num, INT), sz)
+
+
+# ---------------------------------------------------------------------------
+# summary-side reductions (repro_torch.summary.algebra's hot loop)
+# ---------------------------------------------------------------------------
+
+def segment_weighted_sum(
+    seg_ids: np.ndarray, values: np.ndarray, weights: np.ndarray,
+    num_segments: int, *, device: Union[str, torch.device] = "cuda",
+    bound: Optional[float] = None,
+) -> np.ndarray:
+    """Per-segment sum of values*weights over sorted dense segment ids.
+
+    The dispatch point for every summary-side aggregate: all traffic,
+    integer and float, rides the ``mul_segsum`` kernel (int64 sums for
+    integers, float64 for floats).  ``bound`` is the reference's hint for
+    skipping its f32-exactness scan; the port's kernel has no f32 ceiling,
+    so it is accepted and not needed.  Returns numpy, as the reference.
+    """
+    del bound
+    dev = resolve_device(device)
+    values = np.asarray(values)
+    weights = np.asarray(weights)
+    floaty = values.dtype.kind == "f" or weights.dtype.kind == "f"
+    if len(values) == 0:
+        return np.zeros(num_segments, np.float64 if floaty else np.int64)
+    acc = np.float64 if floaty else np.int64
+    seg_t, x, w = _uploads(dev, (seg_ids, np.int32), (values, acc),
+                           (weights, acc))
+    out = _download(ops.mul_segsum(seg_t, x, w, num_segments))
+    return out if floaty else out.astype(INT)
+
+
+def weighted_total(
+    values: np.ndarray, weights: np.ndarray,
+    *, device: Union[str, torch.device] = "cuda",
+    bound: Optional[float] = None,
+):
+    """sum(values * weights) — a one-segment reduction."""
+    seg = np.zeros(len(np.asarray(values)), np.int32)
+    out = segment_weighted_sum(seg, values, weights, 1, device=device,
+                               bound=bound)
+    return out[0] if len(out) else out.dtype.type(0)
+
+
+def group_device_enabled(device: Union[str, torch.device]) -> bool:
+    """Route group_by sorts to the device only for a CUDA device: on the
+    CPU the host argsort does the same work without the copies."""
+    return torch.device(device).type == "cuda"
+
+
+def group_runs_device(
+    ranks: np.ndarray, *, device: Union[str, torch.device] = "cuda",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Grouped-run decomposition via a device packed-key sort.
+
+    Input: packed int64 ranks (one per live run).  Output matches the host
+    ``group_ranks``: (stable sort order, dense int32 segment ids, group
+    starts, group count).  The sort is a stable ``torch.sort`` (the
+    reference's is ``jnp.argsort``, outside any kernel); the run
+    boundaries are the ``run_boundaries`` kernel over int64 keys.
+    """
+    dev = resolve_device(device)
+    n = len(ranks)
+    if n == 0:
+        return (np.zeros(0, INT), np.zeros(0, np.int32),
+                np.zeros(0, INT), 0)
+    with _span("engine:group_runs", cat="summary", backend="torch",
+               device=True, runs=n):
+        (ranks_t,) = _uploads(dev, (ranks, np.int64))
+        sorted_ranks, order = torch.sort(ranks_t, stable=True)
+        del ranks_t
+        flags = ops.run_boundaries(sorted_ranks)
+        seg = torch.cumsum(flags, 0, dtype=torch.int32).sub_(1)
+        starts = torch.nonzero(flags).squeeze(1)
+        order, seg, starts = _download(order), _download(seg), \
+            _download(starts)
+    return order.astype(INT), seg, starts.astype(INT), int(len(starts))
 
 
 # ---------------------------------------------------------------------------

@@ -18,3 +18,20 @@ def expand_many_ref(payloads: torch.Tensor, bounds: torch.Tensor,
     idx = torch.searchsorted(bounds, t, right=True)
     idx.clamp_(max=max(payloads.shape[1] - 1, 0))
     return payloads[:, idx]
+
+
+def run_boundaries_ref(keys: torch.Tensor) -> torch.Tensor:
+    """flags[i] = 1 iff i == 0 or keys[i] != keys[i-1] (int32 flags)."""
+    flags = torch.ones(keys.shape[0], dtype=torch.int32, device=keys.device)
+    flags[1:] = (keys[1:] != keys[:-1]).to(torch.int32)
+    return flags
+
+
+def mul_segsum_ref(seg: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """out[s] = sum of x[i] * y[i] over seg[i] == s, in the accumulation
+    dtype of ``x`` and ``y`` (int64 for integers, float64 for floats)."""
+    acc = torch.float64 if x.is_floating_point() or y.is_floating_point() \
+        else torch.int64
+    out = torch.zeros(num_segments, dtype=acc, device=seg.device)
+    return out.index_add_(0, seg.long(), x.to(acc) * y.to(acc))

@@ -1,24 +1,36 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``: run on a machine with an NVIDIA card by
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card each test skips
 with its reason; whether a card is present is decided inside the test, so
-every pytest worker collects the same tests.  Exact comparisons: the
-kernel computes integer gathers.
+every pytest worker collects the same tests.  Exact comparisons, except
+``mul_segsum`` on non-integral float64 values (``rtol=1e-12``: the kernel
+adds in tile order, the plain version in another).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import repro_torch
+from repro_torch.core import engine
+from repro_torch.kernels import ops
 from repro_torch.kernels.expand_many import expand_many
-from repro_torch.kernels.ref import expand_many_ref
+from repro_torch.kernels.mul_segsum import mul_segsum
+from repro_torch.kernels.ref import (expand_many_ref, mul_segsum_ref,
+                                     run_boundaries_ref)
+from repro_torch.kernels.run_boundaries import run_boundaries
+from repro_torch.relational.synth import figure1, lastfm_like
+from repro_torch.summary.algebra import SummaryFrame
 
-from torch_cases import bounds_of, expand_cases, repeat_oracle
+from torch_cases import (boundaries_cases, bounds_of, expand_cases,
+                         repeat_oracle, segsum_cases)
 
 pytestmark = pytest.mark.gpu
 
 CASES = expand_cases()
+SEGSUM = segsum_cases()
+BOUNDARIES = boundaries_cases()
 
 
 def _card():
@@ -66,3 +78,100 @@ def test_expand_many_kernel_output_past_2_31_elements():
     assert torch.equal(got[k - 1], expand_many_ref(
         payloads[k - 1:], bounds, total)[0])
 
+
+@pytest.mark.parametrize("name", sorted(SEGSUM))
+def test_mul_segsum_kernel_matches_plain_version(name):
+    dev = _card()
+    seg, x, y, s = SEGSUM[name]
+    args = [torch.from_numpy(a).to(dev) for a in (seg, x, y)]
+    launches = mul_segsum.launches
+    got = mul_segsum(*args, s)
+    torch.cuda.synchronize()
+    assert mul_segsum.launches == launches + int(len(seg) > 0)
+    want = mul_segsum_ref(*args, s)
+    assert got.dtype == want.dtype and got.shape == (s,)
+    if name == "f64":
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-9)
+        assert torch.equal(got, mul_segsum(*args, s))  # no atomics
+    else:
+        assert torch.equal(got, want)
+    if got.dtype == torch.int64:
+        oracle = np.zeros(s, np.int64)
+        np.add.at(oracle, seg, x.astype(np.int64) * y.astype(np.int64))
+        np.testing.assert_array_equal(got.cpu().numpy(), oracle)
+
+
+@pytest.mark.parametrize("name", sorted(BOUNDARIES))
+def test_run_boundaries_kernel_matches_plain_version(name):
+    dev = _card()
+    keys = torch.from_numpy(BOUNDARIES[name]).to(dev)
+    launches = run_boundaries.launches
+    got = run_boundaries(keys)
+    torch.cuda.synchronize()
+    assert run_boundaries.launches == launches + int(keys.numel() > 0)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, run_boundaries_ref(keys))
+
+
+def test_group_by_count_and_build_factor_on_the_card():
+    dev = _card()
+    rng = np.random.default_rng(3)
+    keys = np.sort(rng.integers(0, 5000, 300000)).astype(np.int32)
+    seg, counts, num = ops.group_by_count(torch.from_numpy(keys).to(dev))
+    uniq, want = np.unique(keys, return_counts=True)
+    assert num == len(uniq)
+    np.testing.assert_array_equal(counts.cpu().numpy(), want)
+    cols = {"A": rng.integers(0, 300, 200000),
+            "B": rng.integers(0, 7000, 200000)}
+    sizes = {"A": 300, "B": 7000}
+    a = engine.build_factor(cols, sizes, device=dev)
+    b = engine.build_factor(cols, sizes, device="cpu")
+    np.testing.assert_array_equal(a.keys, b.keys)
+    np.testing.assert_array_equal(a.bucket, b.bucket)
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        assert list(a) == list(b)
+        for k in a:
+            _same(a[k], b[k])
+    elif isinstance(a, float) or np.asarray(a).dtype.kind == "f":
+        np.testing.assert_allclose(a, b, rtol=1e-12)
+    else:
+        np.testing.assert_array_equal(a, b)
+
+
+def test_aggregate_on_the_card_equals_the_cpu_figure1():
+    dev = _card()
+    cat, q = figure1()
+    gpu = repro_torch.GraphicalJoin(cat, q, device=dev)
+    cpu = repro_torch.GraphicalJoin(cat, q, device="cpu")
+    g = gpu.run()
+    launches = mul_segsum.launches
+    for args, kw in ((("count",), dict(by=["A"])), (("count",), {}),
+                     (("count",), dict(by=["B", "C"],
+                                       where={"C": ["c3", "c4"]})),
+                     (("count_distinct", "D"), dict(where={"B": "b4"}))):
+        _same(gpu.aggregate(*args, gfjs=g, **kw),
+              cpu.aggregate(*args, gfjs=g, **kw))
+    assert mul_segsum.launches > launches
+
+
+def test_aggregate_on_the_card_device_sort_route(monkeypatch):
+    dev = _card()
+    cat, qs = lastfm_like(n_users=300, n_artists=400, artists_per_user=8,
+                          friends_per_user=4)
+    gj = repro_torch.GraphicalJoin(cat, qs["lastfm_A1"], device=dev)
+    g = gj.run()
+    cpu = SummaryFrame.of(g, device="cpu")
+    gpu = SummaryFrame.of(g, device=dev)
+    monkeypatch.setattr(engine, "GROUP_DEVICE_MIN_RUNS", 0)
+    launches = run_boundaries.launches
+    aggs = dict(n="count", s=("sum", "U2"), avg=("mean", "U2"))
+    _same(gpu.group_by(["U1", "A2"], **aggs),
+          cpu.group_by(["U1", "A2"], **aggs))
+    assert run_boundaries.launches > launches
+    user = int(cpu.group_by("U1")["U1"][0])
+    _same(gpu.filter(U1=user).group_by("A2", **aggs),
+          cpu.filter(U1=user).group_by("A2", **aggs))
+    _same(gpu.sum("U2"), cpu.sum("U2"))
