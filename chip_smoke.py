@@ -8,8 +8,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. the card: name, count, and ``nvidia-smi``'s name and power limit;
 2. build every kernel of the path from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together) and print ``-Xptxas -v``;
-3. each kernel (``expand_many``, ``mul_segsum``, ``run_boundaries``)
-   against its plain PyTorch version on small edge cases;
+3. each kernel (``expand_many``, ``mul_segsum``, ``run_boundaries``,
+   ``expand_gather``, ``dense_message``) against its plain PyTorch version
+   on small edge cases;
 4. ``lastfm_A1`` at Last.fm-2k scale (HetRec 2011: 1,892 users, 17,632
    artists) through ``repro_torch.GraphicalJoin(...).run()`` and
    ``.desummarize()`` on the card, held exactly against the same package's
@@ -24,17 +25,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``engine.build_factor`` (GROUP BY COUNT on the card) over the 38.3M
    desummarized ``(U1, A2)`` rows of lastfm_A1, held against numpy
    ``Factor.from_columns`` and against the summary's GROUP BY;
-7. each kernel at the shapes its path gave it (recorded by its ``kernel:``
-   spans in phases 4-6): exact against its plain version, and timed with
-   CUDA events beside its HBM bound, the plain version and one PyTorch
-   call computing the same function where there is one
-   (``repeat_interleave``, ``index_add_``);
-8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+7. the kernel API and the dense message path at the same scale, on the
+   card: ``engine.maybe_dense_message`` over the ``user_friends`` potential
+   (1,892 x 1,892) recomputes lastfm_A1's and lastfm_A2's join sizes
+   (one message, then two chained), each message held bit for bit against
+   the numpy route (``multiply`` then ``marginalize_out``); ``ops.rle_expand``
+   and ``ops.expand_indices`` over lastfm_A1's 1,004,489-run level, held
+   against phase 4's column and the plain versions; and ``desummarize``
+   twice, the second call reusing every level's memoized device bounds;
+8. each kernel at the shapes its path gave it (recorded by its ``kernel:``
+   spans in phases 4-7; for the new kernels also the reference benchmark's
+   shapes): exact against its plain version, and timed with CUDA events
+   beside its bound, the plain version and one PyTorch call computing the
+   same function where there is one (``repeat_interleave``, ``index_add_``,
+   ``torch.matmul``);
+9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
-phase 5 (``expand_many``: the main path), and zeroed again just before
-phase 6 and read just after it (``mul_segsum``, ``run_boundaries``: the
-summary path).  ``--out`` writes the per-shape measurements as JSON.
+phase 5 (``expand_many``: the main path), zeroed again just before phase 6
+and read just after it (``mul_segsum``, ``run_boundaries``: the summary
+path), and again around phase 7's path (``expand_gather``,
+``dense_message``).  ``--out`` writes the per-shape measurements as JSON.
 """
 
 from __future__ import annotations
@@ -53,6 +64,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12            # H100 SXM data sheet, CUDA cores
+# CUDA C++ Programming Guide, arithmetic instruction throughput: 32-bit
+# integer multiply-add, 64 per clock per SM at compute capability 9.0
+IMAD_PER_CLOCK_PER_SM = 64
+# dense_message.cu: each thread's 4 x 4 micro-tile over a 16-deep V step
+DENSE_MACS_PER_STEP = 4 * 4 * 16
 LASTFM_2K = dict(n_users=1892, n_artists=17632, artists_per_user=49,
                  friends_per_user=7, seed=0)
 
@@ -199,6 +216,61 @@ def check_summary_kernel_cases(dev):
     print(f"edge cases: mul_segsum {len(cases)}, run_boundaries "
           f"{len(bcases)}, against the plain versions")
     return seg_err, b_err
+
+
+def dense_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| (0 when equal; float64 for the measure only)."""
+    if torch.equal(got, want):
+        return 0
+    return float((got.double() - want.double()).abs().max())
+
+
+def check_message_kernel_cases(dev):
+    """expand_gather and dense_message against their plain versions on the
+    card tests' edge cases (tests/torch_cases.py): a single run,
+    zero-length runs, total 0, float32 payloads whose NaN and -0.0 bit
+    patterns must survive, totals at a block edge; P, V, K in {1, 63, 64,
+    65, 1025}, empty dimensions, products and sums past 2^24 and 2^40,
+    int64 wrapping, negative counts, and float32 sums of integers below
+    2^24 (exact in the kernel's f32 and the plain version's f64).  All
+    exact (float payloads bit for bit).  Returns each kernel's largest
+    error."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import dense_cases, gather_cases
+    from repro_torch.kernels.dense_message import dense_message
+    from repro_torch.kernels.expand_gather import expand_gather
+    from repro_torch.kernels.ref import dense_message_ref, expand_gather_ref
+    g_err = 0
+    gcases = gather_cases()
+    for name, (payload, freqs) in gcases.items():
+        bounds = np.cumsum(freqs).astype(np.int32)
+        total = int(bounds[-1]) if len(bounds) else 0
+        p = torch.from_numpy(payload).to(dev)
+        b = torch.from_numpy(bounds).to(dev)
+        got = expand_gather(p, b, total).view(torch.int32)
+        want = expand_gather_ref(p, b, total).view(torch.int32)
+        sync(dev)
+        check(got.shape == (total,), f"expand_gather {name}: shape")
+        e = max_abs_err(got[None], want[None])
+        check(e == 0, f"expand_gather {name}: differs from plain by {e}")
+        check(np.array_equal(got.cpu().numpy(),
+                             np.repeat(payload, freqs).view(np.int32)),
+              f"expand_gather {name}: np.repeat")
+        g_err = max(g_err, e)
+    d_err = 0
+    dcases = dense_cases()
+    for name, (phi, m) in dcases.items():
+        a, b = torch.from_numpy(phi).to(dev), torch.from_numpy(m).to(dev)
+        got, want = dense_message(a, b), dense_message_ref(a, b)
+        sync(dev)
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"dense_message {name}: {got.dtype} {tuple(got.shape)}")
+        e = dense_err(got, want)
+        check(e == 0, f"dense_message {name}: differs from plain by {e}")
+        d_err = max(d_err, e)
+    print(f"edge cases: expand_gather {len(gcases)}, dense_message "
+          f"{len(dcases)}, against the plain versions")
+    return g_err, d_err
 
 
 # -- phases 4-5: the main path -----------------------------------------------
@@ -501,7 +573,132 @@ def run_summary(cat, queries, a1, a2, dev, tracers) -> dict:
     return out
 
 
-# -- phase 7: kernels at the paths' shapes -----------------------------------
+# -- phase 7: the kernel API and the dense message path -----------------------
+
+def friends_potential(cat, parent: str, child: str):
+    """Phi(parent, child) = Factor.from_columns of user_friends (user ids
+    are already codes 0..n-1), and the per-user artist counts m_ua."""
+    from repro_torch.core.potentials import Factor
+    uf, ua = cat["user_friends"].columns, cat["user_artists"].columns
+    n = int(max(uf["userID"].max(), uf["friendID"].max(),
+                ua["userID"].max())) + 1
+    phi = Factor.from_columns({parent: uf["userID"], child: uf["friendID"]},
+                              {parent: n, child: n})
+    return phi, np.bincount(ua["userID"], minlength=n).astype(np.int64)
+
+
+def dense_split(phi, child, msg, dev) -> dict:
+    """Seconds of each step of one ``maybe_dense_message``, each ended by a
+    synchronize: host (the reference's declines and the COO cell index),
+    upload, densify (scatter into the [P, V] int32 matrix), kernel,
+    download."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    host, t_host = timed(lambda: engine.dense_inputs(phi, child, msg), dev)
+    P, V, flat, vals, m = host
+    up, t_up = timed(lambda: engine._uploads(
+        dev, (flat, np.int64), (vals, np.int32), (m, np.int32)), dev)
+    dense, t_dense = timed(lambda: engine.densify(P, V, up[0], up[1]), dev)
+    out, t_kernel = timed(lambda: ops.dense_message(dense, up[2].view(V, 1)),
+                          dev)
+    _, t_down = timed(lambda: out.cpu().numpy(), dev)
+    return dict(host=t_host, upload=t_up, densify=t_dense, kernel=t_kernel,
+                download=t_down)
+
+
+def run_dense_and_api(cat, queries, a1, a2, dev, tracers) -> dict:
+    """Phase 7: the join sizes of phases 4-5 through the dense kernel, the
+    single-column expansion over lastfm_A1's widest level, and a second
+    desummarize on memoized bounds."""
+    import repro_torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import expand_gather_ref
+    from repro_torch.obs.trace import Tracer
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import numpy_message
+    tr = Tracer()
+    tracers.append(tr)
+    (phi12, m_ua), t_phi = timed(
+        lambda: friends_potential(cat, "U1", "U2"), dev)
+    phi23, _ = friends_potential(cat, "U2", "U3")
+    P = phi12.sizes[0]
+    print(f"dense message path: Phi(U1, U2) {P} x {phi12.sizes[1]} "
+          f"({phi12.num_entries} cells) built in {t_phi:.4f}s")
+
+    def message(phi, child, msg, what):
+        with tr.span(f"message:{what}"):
+            out, t = timed(lambda: engine.maybe_dense_message(
+                phi, child, msg, device=dev), dev)
+        check(out is not None, f"{what}: maybe_dense_message declined")
+        want = numpy_message(phi, child, msg)
+        check(out.dtype == np.int64 and np.array_equal(out, want),
+              f"{what}: differs from the numpy route")
+        return out, t
+
+    m1, t_a1 = message(phi12, "U2", m_ua, "A1 m(U1)")
+    size_a1 = int(m1 @ m_ua)
+    check(size_a1 == a1["rows"], f"lastfm_A1 by messages {size_a1} vs "
+          f"{a1['rows']}")
+    m2, t_a2a = message(phi23, "U3", m_ua, "A2 m(U2)")
+    m12, t_a2b = message(phi12, "U2", m2, "A2 m(U1)")
+    size_a2 = int(m12 @ m_ua)
+    check(size_a2 == a2["rows"], f"lastfm_A2 by messages {size_a2} vs "
+          f"{a2['rows']}")
+    print(f"  lastfm_A1 = sum m1 * m_ua = {size_a1} ({t_a1:.4f}s); "
+          f"lastfm_A2 = {size_a2} ({t_a2a:.4f}s + {t_a2b:.4f}s); each "
+          f"message equal to the numpy route, each sum to phases 4-5")
+
+    gfjs = a1["gfjs"]
+    gj = repro_torch.GraphicalJoin(cat, queries["lastfm_A1"], device=dev,
+                                   tracer=tr)
+    gfjs._launch.clear()            # phases 4-6 filled the memo already
+    first, t_first = timed(lambda: gj.desummarize(gfjs, decode=False), dev)
+    entries = dict(gfjs._launch)
+    check(sorted(entries) == list(range(len(gfjs.levels))),
+          f"memoized levels {sorted(entries)}")
+    second, t_second = timed(lambda: gj.desummarize(gfjs, decode=False), dev)
+    check(all(gfjs._launch[lv] is e for lv, e in entries.items())
+          and len(gfjs._launch) == len(entries),
+          "the second desummarize made new launch metadata")
+    for v in first:
+        check(torch.equal(first[v], second[v]), f"second desummarize {v}")
+    del second
+    print(f"  desummarize lastfm_A1: first {t_first:.4f}s (fills the memo), "
+          f"second {t_second:.4f}s (reuses {len(entries)} levels' device "
+          f"bounds, {sum(e[1][0].nbytes for e in entries.values())} B); "
+          f"equal columns")
+
+    li = next(i for i, lv in enumerate(gfjs.levels) if "A2" in lv.vars)
+    lvl, total = gfjs.levels[li], gfjs.join_size
+    payload = torch.from_numpy(lvl.key_cols["A2"].astype(np.int32)).to(dev)
+    meta = ops.gfjs_expand_meta(gfjs, li, dev)
+    with tr.span("rle_expand:A2"):
+        col, t_col = timed(lambda: ops.rle_expand(payload, None, total,
+                                                  meta=meta), dev)
+    check(torch.equal(col, first["A2"]), "rle_expand A2 vs expand_many's")
+    check(torch.equal(col, expand_gather_ref(payload, meta, total)),
+          "rle_expand A2 vs the plain version")
+    del col, first
+    with tr.span("expand_indices"):
+        idx, t_idx = timed(lambda: ops.expand_indices(meta, total), dev)
+    runs = torch.arange(lvl.num_runs, dtype=torch.int32, device=dev)
+    check(torch.equal(idx, expand_gather_ref(runs, meta, total)),
+          "expand_indices vs the plain version")
+    del idx
+    print(f"  rle_expand of A2 over level {li} ({lvl.num_runs} runs -> "
+          f"{total} rows) {t_col:.4f}s, equal to phase 4's column and the "
+          f"plain version; expand_indices {t_idx:.4f}s, equal to the plain "
+          f"version")
+    return dict(join_sizes=dict(lastfm_A1=size_a1, lastfm_A2=size_a2),
+                seconds=dict(phi=t_phi, a1=t_a1, a2=[t_a2a, t_a2b],
+                             desummarize_first=t_first,
+                             desummarize_second=t_second,
+                             rle_expand=t_col, expand_indices=t_idx),
+                _split_args=(phi12, m_ua))
+
+
+# -- phase 8: kernels at the paths' shapes -----------------------------------
 
 def cuda_ms(fn, reps: int) -> float:
     fn()
@@ -635,25 +832,175 @@ def measure_summary_shape(key, launches, dev, seed) -> dict:
     return dict(kernel=kernel, n=n, third=third, dtype=dtype,
                 launches=launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
-                bound_ms=bound_ms)
+                bound_ms=bound_ms, bound_by="bytes")
 
 
-def kernel_row(name, rows, launches, err) -> dict:
-    """The kernels-line entry of a summary kernel: sums over the distinct
-    launch shapes of phase 6 (one launch of each)."""
-    mine = [r for r in rows if r["kernel"] == name]
+def counts_instr_per_mac() -> float:
+    """SASS instructions per 32 x 32 -> 64-bit multiply-add in the counts
+    instantiation of dense_message (``IMAD.WIDE``, signed; the unsigned
+    ones compute addresses), from ``cuobjdump -sass`` of the built
+    library; 1.0, and said so, where cuobjdump cannot be run."""
+    import re
+    from repro_torch.kernels import build
+    lib = build.load("dense_message")._name
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    try:
+        sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        print(f"  cuobjdump failed ({exc}): taking 1 instruction per "
+              f"multiply-add")
+        return 1.0
+    body = next(f for f in sass.split("Function : ")[1:]
+                if "Counts" in f.split()[0])
+    n = len(re.findall(r"\bIMAD\.WIDE ", body))
+    print(f"  SASS of the counts kernel: {n} IMAD.WIDE for "
+          f"{DENSE_MACS_PER_STEP} multiply-adds per unrolled step")
+    return n / DENSE_MACS_PER_STEP
+
+
+def message_rates(dev) -> dict:
+    """The counts path's peak: int32 multiply-adds per second (the guide's
+    rate per SM x SMs x the card's maximum SM clock from nvidia-smi) and
+    the SASS instructions each 64-bit multiply-add takes."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = float(smi.stdout.split()[0]) * 1e6
+    return dict(instr_per_mac=counts_instr_per_mac(), sms=sms,
+                clock_hz=clock,
+                imad_per_s=IMAD_PER_CLOCK_PER_SM * sms * clock)
+
+
+def message_shapes(tracers) -> dict:
+    """(kernel, shape...) -> launches, from phase 7's ``kernel:`` spans."""
+    shapes: dict = {}
+    for tr in tracers:
+        for sp in tr.spans:
+            a = sp.args
+            if sp.name == "kernel:dense_message" and a["p"] * a["k"]:
+                key = ("dense_message", a["p"], a["v"], a["k"], a["dtype"])
+            elif sp.name == "kernel:rle_expand" and a["total"]:
+                key = ("expand_gather", a["runs"], a["total"], a["dtype"])
+            else:
+                continue
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def measure_dense_shape(p, v, k, dtype, launches, dev, seed, rates) -> dict:
+    """dense_message at [p, v] @ [v, k] on seeded counts in [0, 100):
+    exact against the plain version, then timed beside its bound (the
+    larger of HBM bytes and multiply-adds at the type's rate), the plain
+    version and ``torch.matmul`` (TF32 off; for counts, on float64 copies,
+    the nearest library call, exact only while sums stay below 2^53)."""
+    from repro_torch.kernels.dense_message import dense_message
+    from repro_torch.kernels.ref import dense_message_ref
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.int32 if dtype == "int32" else torch.float32
+    phi = torch.randint(0, 100, (p, v), generator=gen, device=dev,
+                        dtype=torch.int32).to(dt)
+    m = torch.randint(0, 100, (v, k), generator=gen, device=dev,
+                      dtype=torch.int32).to(dt)
+    got, want = dense_message(phi, m), dense_message_ref(phi, m)
+    err = dense_err(got, want)
+    check(err == 0, f"dense_message vs plain at [{p},{v}]@[{v},{k}] "
+          f"{dtype}: {err}")
+    del got, want
+    counts = dt == torch.int32
+    reps = 20
+    ms = cuda_ms(lambda: dense_message(phi, m), reps)
+    plain_ms = cuda_ms(lambda: dense_message_ref(phi, m), reps)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if counts:
+            a, b = phi.double(), m.double()
+            library_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
+            lib_name = "float64 torch.matmul"
+        else:
+            library_ms = cuda_ms(lambda: torch.matmul(phi, m), reps)
+            lib_name = "torch.matmul, TF32 off"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    nbytes = (p * v + v * k) * 4 + p * k * (8 if counts else 4)
+    macs = p * v * k
+    ops_ms = (macs * rates["instr_per_mac"] / rates["imad_per_s"] if counts
+              else 2 * macs / FP32_FLOP_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    label = f"[{p},{v}]@[{v},{k}] {'counts' if counts else 'float32'}"
+    print(f"  dense_message {label} (x{launches}): kernel {ms:.4f}ms, bound "
+          f"{bound_ms:.4f}ms by {bound_by} ({bound_ms / ms:.3f} of bound; "
+          f"bytes {bytes_ms:.4f}ms, operations {ops_ms:.4f}ms), plain "
+          f"{plain_ms:.4f}ms, {lib_name} {library_ms:.4f}ms")
+    return dict(kernel="dense_message", shape=[p, v, k], dtype=dtype,
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library=lib_name, bytes=nbytes,
+                macs=macs, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def measure_gather_shape(runs, launches, dev, seed, level=None) -> dict:
+    """expand_gather over ``level`` (a GFJS level: its A2 codes and bounds)
+    or seeded runs of length 1-15 (the reference benchmark's): exact
+    against the plain version, then timed beside its HBM bound, the plain
+    version and ``repeat_interleave``."""
+    from repro_torch.kernels.expand_gather import expand_gather
+    from repro_torch.kernels.ref import expand_gather_ref
+    if level is not None:
+        freqs = torch.from_numpy(level.freq.astype(np.int64)).to(dev)
+        payload = torch.from_numpy(
+            level.key_cols["A2"].astype(np.int32)).to(dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        freqs = torch.randint(1, 16, (runs,), generator=gen, device=dev)
+        payload = torch.randint(0, 1 << 20, (runs,), generator=gen,
+                                device=dev, dtype=torch.int32)
+    bounds = torch.cumsum(freqs, 0).to(torch.int32)
+    total = int(bounds[-1])
+    got, want = expand_gather(payload, bounds, total), \
+        expand_gather_ref(payload, bounds, total)
+    err = max_abs_err(got[None], want[None])
+    check(err == 0, f"expand_gather vs plain at runs={runs}: {err}")
+    del got, want
+    reps = 20
+    ms = cuda_ms(lambda: expand_gather(payload, bounds, total), reps)
+    plain_ms = cuda_ms(lambda: expand_gather_ref(payload, bounds, total),
+                       reps)
+    library_ms = cuda_ms(lambda: torch.repeat_interleave(
+        payload, freqs, output_size=total), reps)
+    nbytes = (total + 2 * runs) * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  expand_gather runs={runs} total={total} (x{launches}): kernel "
+          f"{ms:.4f}ms, bound {bound_ms:.4f}ms ({bound_ms / ms:.3f} of "
+          f"bound), plain {plain_ms:.4f}ms, repeat_interleave "
+          f"{library_ms:.4f}ms")
+    return dict(kernel="expand_gather", runs=runs, total=total,
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bytes=nbytes, bound_ms=bound_ms,
+                bound_by="bytes")
+
+
+def kernel_row(name, rows, launches, err, source, replaces) -> dict:
+    """The kernels-line entry of a kernel timed at phase 6's or 7's shapes:
+    sums over its path's distinct launch shapes (one launch of each;
+    shapes with no launch on the path, the benchmark's, are left out)."""
+    mine = [r for r in rows if r["kernel"] == name and r["launches"]]
     lib = [r["library_ms"] for r in mine]
     return dict(
-        name=name, route="cuda",
-        source=f"src/repro_torch/kernels/csrc/{name}.cu",
-        replaces={"mul_segsum": "src/repro/kernels/segsum.py:29",
-                  "run_boundaries": "src/repro/kernels/boundaries.py:26"}[
-                      name],
+        name=name, route="cuda", source=source, replaces=replaces,
         launches=launches,
-        max_abs_err=max([err] + [r["max_abs_err"] for r in mine]),
+        max_abs_err=max([err] + [r["max_abs_err"] for r in rows
+                                 if r["kernel"] == name]),
         ms=sum(r["ms"] for r in mine),
         plain_ms=sum(r["plain_ms"] for r in mine),
-        bound_ms=sum(r["bound_ms"] for r in mine), bound_by="bytes",
+        bound_ms=sum(r["bound_ms"] for r in mine),
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in mine)
+        else "operations",
         library_ms=None if None in lib else sum(lib))
 
 
@@ -690,6 +1037,8 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     """Phases 3-7 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
+    from repro_torch.kernels.dense_message import dense_message
+    from repro_torch.kernels.expand_gather import expand_gather
     from repro_torch.kernels.expand_many import expand_many
     from repro_torch.kernels.mul_segsum import mul_segsum
     from repro_torch.kernels.run_boundaries import run_boundaries
@@ -699,6 +1048,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
 
     err = check_edge_cases(dev)
     seg_err, b_err = check_summary_kernel_cases(dev)
+    g_err, d_err = check_message_kernel_cases(dev)
 
     t0 = time.perf_counter()
     cat, queries = lastfm_like(**lastfm_kw)
@@ -730,6 +1080,23 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     check(fallbacks.value == fb1, "numpy fallbacks on the summary path")
     print(f"summary path: launches {summary_launches}, numpy fallbacks=0")
     del a2["gfjs"]
+
+    expand_gather.launches = dense_message.launches = 0
+    fb2 = fallbacks.value
+    msg_tracers: list = []
+    dense = run_dense_and_api(cat, queries, a1, a2, dev, msg_tracers)
+    message_launches = {"expand_gather": expand_gather.launches,
+                        "dense_message": dense_message.launches}
+    for name, n in message_launches.items():
+        check(n > 0, f"the dense message path launched no {name} kernel")
+    check(fallbacks.value == fb2, "numpy fallbacks on the dense message path")
+    print(f"dense message path: launches {message_launches}, numpy "
+          f"fallbacks=0")
+    phi12, m_ua = dense.pop("_split_args")
+    dense_split(phi12, "U2", m_ua, dev)            # warm
+    dense["split"] = dense_split(phi12, "U2", m_ua, dev)
+    print("  one A1 message, steps s: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in dense["split"].items()))
 
     # lastfm_A1's launches for one run() and one desummarize() (the
     # smoke desummarizes twice), plus lastfm_A2's widest generation launch
@@ -765,6 +1132,29 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
                     for i, (key, n) in enumerate(sorted(
                         shapes.items(), key=lambda kv: kv[0][:2]))]
 
+    mshapes = message_shapes(msg_tracers)
+    rates = message_rates(dev)
+    print(f"expand_gather and dense_message at phase 7's shapes and the "
+          f"reference benchmark's (CUDA events; int32 multiply-adds at "
+          f"{rates['imad_per_s']:.6g}/s over {rates['instr_per_mac']} "
+          f"instruction(s) each, FP32 at {FP32_FLOP_PER_S:.3g} FLOP/s, HBM "
+          f"at {HBM_BYTES_PER_S:.3g} B/s):")
+    torch.cuda.empty_cache()
+    message_rows = []
+    for i, (key, n) in enumerate(sorted(mshapes.items())):
+        if key[0] == "dense_message":
+            message_rows.append(measure_dense_shape(*key[1:], n, dev, i,
+                                                    rates))
+        else:
+            runs = key[1]
+            level = next(lv for lv in a1["gfjs"].levels
+                         if lv.num_runs == runs and "A2" in lv.vars)
+            message_rows.append(measure_gather_shape(runs, n, dev, i, level))
+    for j, dtype in enumerate(("float32", "int32")):
+        message_rows.append(measure_dense_shape(2048, 2048, 128, dtype, 0,
+                                                dev, 100 + j, rates))
+    message_rows.append(measure_gather_shape(1_000_000, 0, dev, 102))
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -772,7 +1162,9 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             summary_shapes=summary_rows, summary=summary,
             lastfm_A1={k: v for k, v in a1.items() if k != "gfjs"},
             lastfm_A2=a2, launches=launches,
-            summary_launches=summary_launches), indent=1))
+            summary_launches=summary_launches, dense=dense,
+            message_shapes=message_rows, message_launches=message_launches,
+            rates=rates), indent=1))
     kernels = [dict(
         name="expand_many", route="cuda",
         source="src/repro_torch/kernels/csrc/expand_many.cu",
@@ -782,9 +1174,21 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
         bound_ms=total["bound_ms"], bound_by="bytes",
         library_ms=total["library_ms"]),
         kernel_row("mul_segsum", summary_rows,
-                   summary_launches["mul_segsum"], seg_err),
+                   summary_launches["mul_segsum"], seg_err,
+                   "src/repro_torch/kernels/csrc/mul_segsum.cu",
+                   "src/repro/kernels/segsum.py:29"),
         kernel_row("run_boundaries", summary_rows,
-                   summary_launches["run_boundaries"], b_err)]
+                   summary_launches["run_boundaries"], b_err,
+                   "src/repro_torch/kernels/csrc/run_boundaries.cu",
+                   "src/repro/kernels/boundaries.py:26"),
+        kernel_row("expand_gather", message_rows,
+                   message_launches["expand_gather"], g_err,
+                   "src/repro_torch/kernels/csrc/expand_many.cu",
+                   "src/repro/kernels/expand.py:44"),
+        kernel_row("dense_message", message_rows,
+                   message_launches["dense_message"], d_err,
+                   "src/repro_torch/kernels/csrc/dense_message.cu",
+                   "src/repro/kernels/dense_contract.py:29")]
     return kernels
 
 

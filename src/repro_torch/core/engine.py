@@ -11,12 +11,22 @@ Port of ``src/repro/core/engine_jax.py``:
 * the summary algebra's reductions (``segment_weighted_sum``,
   ``weighted_total``) on ``mul_segsum``, and its device GROUP BY sort
   (``group_runs_device``) on a stable ``torch.sort`` and
-  ``run_boundaries``.
+  ``run_boundaries``;
+* the dense sum-product message (``maybe_dense_message``) on
+  ``kernels/dense_message.py``.
 
 Each kernel is CUDA on the card and its plain PyTorch version for CPU
-tensors.  Unlike the reference, whose Pallas ``mul_segsum`` sums in f32
-and is exact only below 2^24, the port's kernel accumulates in int64 /
-float64: every summary reduction takes it, and no exactness guard exists.
+tensors.  Deliberate differences from the reference, each for exactness:
+
+* its Pallas ``mul_segsum`` sums in f32 and is exact only below 2^24; the
+  port's kernel accumulates in int64 / float64, so every summary reduction
+  takes it and no exactness guard exists;
+* its ``maybe_dense_message`` multiplies in f32, so products and row sums
+  past 2^24 round although each operand is below 2^24; the port's kernel
+  forms 64-bit products of int32 counts and sums them in int64, equal to
+  the numpy route (``multiply`` then ``marginalize_out``) bit for bit;
+* its generation scans expansion counts in int32 (``jnp.cumsum``), which
+  wraps; the port scans in int64.
 
 Every entry point takes an explicit ``device``: ``"cuda"`` (the default)
 raises when no card is present, and only ``"cpu"`` runs the plain
@@ -48,6 +58,8 @@ from repro_torch.obs.trace import span as _span
 from repro_torch.relational.encoding import Domain
 
 I32_MAX = (1 << 31) - 1
+DENSE_BUDGET = 1 << 22   # max densified cells for the dense message path
+F32_EXACT = 1 << 24      # the reference's operand guard on that path
 # run counts below this: the host argsort beats device round-trips
 GROUP_DEVICE_MIN_RUNS = 1 << 15
 
@@ -145,6 +157,76 @@ def build_factor(cols: Dict[str, np.ndarray], sizes: Dict[str, int],
 
 
 # ---------------------------------------------------------------------------
+# message passing (sum-product contraction)
+# ---------------------------------------------------------------------------
+
+def dense_inputs(phi: Factor, child: str, msg_vals: np.ndarray):
+    """The host half of :func:`maybe_dense_message`: ``None`` where the
+    reference declines, else ``(P, V, flat cell index int64, cell values
+    int32, message int32)``."""
+    if len(phi.vars) != 2 or child not in phi.vars:
+        return None
+    ci = phi.var_index(child)
+    pi = 1 - ci
+    P, V = phi.sizes[pi], phi.sizes[ci]
+    if P * V > DENSE_BUDGET:
+        return None
+    vals = phi.bucket * phi.fac
+    msg = np.asarray(msg_vals)
+    if vals.max(initial=0) >= F32_EXACT or msg.max(initial=0) >= F32_EXACT:
+        return None
+    if msg.dtype.kind not in "iub" or msg.shape != (V,):
+        raise ValueError(f"message must be [{V}] integers, got "
+                         f"{msg.dtype} {msg.shape}")
+    if vals.min(initial=0) < -I32_MAX - 1 or msg.min(initial=0) < -I32_MAX - 1:
+        raise ValueError("counts below -2^31 do not fit the int32 kernel")
+    flat = phi.keys[:, pi] * V + phi.keys[:, ci]
+    return (P, V, flat, vals.astype(np.int32), msg.astype(np.int32))
+
+
+def densify(P: int, V: int, flat: torch.Tensor,
+            vals: torch.Tensor) -> torch.Tensor:
+    """The int32 ``[P, V]`` potential from its COO cells, on their device
+    (cells are unique in a Factor, so each is assigned once)."""
+    dense = torch.zeros(P * V, dtype=torch.int32, device=vals.device)
+    dense.index_put_((flat,), vals)
+    return dense.view(P, V)
+
+
+def maybe_dense_message(
+    phi: Factor, child: str, msg_vals: np.ndarray,
+    *, device: Union[str, torch.device] = "cuda",
+) -> Optional[np.ndarray]:
+    """Dense route for the message ``m_out[p] = sum_v phi[p, v] * m_in[v]``.
+
+    Returns the per-parent-code sums (int64 numpy), or ``None`` where the
+    reference declines, and only there: ``phi`` is not over two variables,
+    ``child`` is not one of them, ``P * V > DENSE_BUDGET``, or a cell value
+    or message reaches 2^24.  Otherwise ``bucket * fac`` is densified into
+    an int32 ``[P, V]`` on the device and the counts instantiation of the
+    ``dense_message`` kernel contracts it with the message as ``[V, 1]``.
+
+    Unlike the reference (f32 on the MXU, whose products and row sums past
+    2^24 round although each operand is below 2^24), the product is exact:
+    64-bit products summed in int64, equal to ``phi.multiply(message)
+    .marginalize_out(child)`` bit for bit, even where int64 wraps.  A count
+    below -2^31 does not fit the kernel's int32 inputs and raises.
+    """
+    dev = resolve_device(device)
+    host = dense_inputs(phi, child, msg_vals)
+    if host is None:
+        return None
+    P, V, flat, vals, msg = host
+    with _span("engine:dense_message", cat="message", backend="torch",
+               device=True, p=P, v=V, cells=len(vals)):
+        flat_t, vals_t, msg_t = _uploads(dev, (flat, np.int64),
+                                         (vals, np.int32), (msg, np.int32))
+        dense = densify(P, V, flat_t, vals_t)
+        out = ops.dense_message(dense, msg_t.view(V, 1))
+        return _download(out)[:, 0].astype(INT)
+
+
+# ---------------------------------------------------------------------------
 # summary-side reductions (repro_torch.summary.algebra's hot loop)
 # ---------------------------------------------------------------------------
 
@@ -231,7 +313,9 @@ def desummarize(
 ) -> Dict[str, Union[torch.Tensor, np.ndarray]]:
     """RLE-expand every level with one fused kernel launch per level.
 
-    ``decode=False`` keeps the codes on ``device``: an int32 tensor of
+    Each level's device bounds are memoized on the GFJS
+    (``ops.gfjs_expand_meta``), so desummarizing it again uploads only the
+    codes.  ``decode=False`` keeps the codes on ``device``: an int32 tensor of
     ``join_size`` rows per column (int64 for a level expanded on numpy).
     ``decode=True`` copies each column to the host and decodes it through
     the GFJS domains, returning numpy arrays of raw values.
@@ -258,7 +342,7 @@ def desummarize(
                 continue
             payloads = _upload(np.stack([lvl.key_cols[v] for v in lvl.vars]),
                                np.int32, dev)
-            bounds = _upload(gfjs.bounds(li), np.int32, dev)
+            bounds = ops.gfjs_expand_meta(gfjs, li, dev)   # memoized
             cols = ops.rle_expand_many(payloads, bounds, total)
             for k, v in enumerate(lvl.vars):
                 out[v] = gfjs.domains[v].decode(cols[k].cpu().numpy()) \

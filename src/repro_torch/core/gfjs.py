@@ -59,9 +59,9 @@ class GFJS:
     domains: Dict[str, Domain]
     _bounds: Dict[int, np.ndarray] = field(default_factory=dict, repr=False)
     # kernel launch metadata memoized alongside the prefix sums: level ->
-    # (t_pad, (padded bounds, per-tile start blocks)) — one entry per level
-    # (a new t_pad replaces it), populated lazily by
-    # repro.kernels.ops.gfjs_expand_meta (this module stays jax-free)
+    # (device, (int32 bounds on that device,)) — one entry per level (another
+    # device replaces it), filled lazily by
+    # repro_torch.kernels.ops.gfjs_expand_meta (this module stays torch-free)
     _launch: Dict[int, tuple] = field(default_factory=dict, repr=False)
 
     @property

@@ -1,7 +1,9 @@
 // expand_many: fused multi-payload RLE expansion, hand-written for sm_90a.
 //
 // Replaces src/repro/kernels/expand_fused.py::_expand_many_kernel (the Pallas
-// TPU kernel behind expand_gather_many).  It computes the same function:
+// TPU kernel behind expand_gather_many), and with K = 1 (expand_gather_launch,
+// at the end) src/repro/kernels/expand.py::_expand_kernel.  It computes the
+// same function:
 //
 //   out[q, t] = payloads[q, r]   where  bounds[r-1] <= t < bounds[r]
 //
@@ -80,4 +82,14 @@ extern "C" int expand_many_launch(const void* payloads, const void* bounds,
       (const int32_t*)payloads, (const int32_t*)bounds, (int32_t)runs, total,
       (int32_t)k, (int32_t*)out);
   return (int)cudaGetLastError();
+}
+
+// The single-payload expansion (the port of src/repro/kernels/expand.py::
+// _expand_kernel) is the K = 1 case of the same function; the TPU needed a
+// second kernel only because a Pallas BlockSpec fixes K.  A float32 payload
+// is expanded as its bit pattern: the kernel copies 4-byte words.
+extern "C" int expand_gather_launch(const void* payload, const void* bounds,
+                                    long long runs, long long total,
+                                    void* out, void* stream) {
+  return expand_many_launch(payload, bounds, runs, total, 1, out, stream);
 }

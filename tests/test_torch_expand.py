@@ -1,26 +1,38 @@
-"""The port's fused RLE expansion against the reference's Pallas kernel.
+"""The port's RLE expansions against the reference's Pallas kernels.
 
 ``expand_many_ref`` and ``rle_expand_many`` on CPU tensors (the plain
 version the wrapper runs there) against the reference's
-``ops.rle_expand_many(..., interpret=True)`` and ``np.repeat``.  GJ is
-integer arithmetic: every comparison is exact.
+``ops.rle_expand_many(..., interpret=True)`` and ``np.repeat``; the
+single-payload ``rle_expand`` and ``expand_indices`` against the
+reference's ``expand.expand_gather`` and ``ops.expand_indices``; the
+memoized launch metadata of ``desummarize``.  GJ is integer arithmetic:
+every comparison is exact (float payloads bit for bit).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
 from repro.core import engine_jax  # noqa: F401  (flips jax_enable_x64 on)
 from repro.kernels import ops as jax_ops
+from repro.kernels.expand import expand_gather as jax_expand_gather
 
+import repro_torch
+from repro_torch.core import engine
+from repro_torch.core.gfjs import desummarize as np_desummarize
 from repro_torch.kernels import ops
+from repro_torch.kernels.expand_gather import expand_gather
 from repro_torch.kernels.expand_many import expand_many
-from repro_torch.kernels.ref import expand_many_ref
+from repro_torch.kernels.ref import expand_gather_ref, expand_many_ref
 from repro_torch.obs.metrics import REGISTRY
+from repro_torch.relational.synth import lastfm_like
 
-from torch_cases import bounds_of, expand_cases, repeat_oracle
+from torch_cases import (bounds_of, expand_cases, gather_cases,
+                         repeat_oracle)
 
 CASES = expand_cases()
+GATHER = gather_cases()
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -72,3 +84,125 @@ def test_expand_many_rejects_bad_inputs(bad):
         payloads, bounds = payloads[:, :0], bounds[:0]
     with pytest.raises(err):
         expand_many(payloads, bounds, total)
+
+
+# ---------------------------------------------------------------------------
+# the single-payload expansion (expand_gather)
+# ---------------------------------------------------------------------------
+
+def _bits(a):
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+@pytest.mark.parametrize("n_runs", [1, 7, 500, 513, 2048])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_rle_expand_matches_reference_kernel(n_runs, dtype):
+    """test_expand_gather_shapes' axes: the reference kernel in interpret
+    mode, its pure-jnp oracle and np.repeat agree with the port."""
+    payload, freqs = GATHER[f"sweep-{n_runs}-{dtype}"]
+    bounds, total = bounds_of(freqs)
+    want = np.asarray(jax_expand_gather(
+        jnp.asarray(payload), jnp.asarray(bounds),
+        t_pad=jax_ops.next_bucket(total), interpret=True))[:total]
+    np.testing.assert_array_equal(_bits(want),
+                                  _bits(np.repeat(payload, freqs)))
+    p_t, b_t = torch.from_numpy(payload), torch.from_numpy(bounds)
+    calls = REGISTRY.counter("kernels.launches").value
+    launches = expand_gather.launches
+    got = ops.rle_expand(p_t, b_t, total)
+    assert REGISTRY.counter("kernels.launches").value == calls + 1
+    assert expand_gather.launches == launches    # the CPU runs no kernel
+    assert got.dtype == p_t.dtype and got.shape == (total,)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("name", sorted(GATHER))
+def test_expand_gather_cases_match_numpy(name):
+    payload, freqs = GATHER[name]
+    bounds, total = bounds_of(freqs)
+    p_t, b_t = torch.from_numpy(payload), torch.from_numpy(bounds)
+    want = _bits(np.repeat(payload, freqs))
+    for out in (expand_gather(p_t, b_t, total),
+                expand_gather_ref(p_t, b_t, total),
+                ops.rle_expand(p_t, None, total, meta=ops.expand_meta(b_t))):
+        assert out.dtype == p_t.dtype
+        np.testing.assert_array_equal(_bits(out), want)
+
+
+def test_expand_gather_is_expand_many_at_k1():
+    payload, freqs = GATHER["sweep-513-int32"]
+    bounds, total = bounds_of(freqs)
+    p_t, b_t = torch.from_numpy(payload), torch.from_numpy(bounds)
+    assert torch.equal(expand_gather(p_t, b_t, total),
+                       expand_many(p_t[None], b_t, total)[0])
+
+
+def test_expand_indices_matches_reference():
+    """The reference test's runs, then a sweep with zero-length runs."""
+    for freqs in (np.asarray([3, 1, 4, 1, 5, 9, 2, 6]),
+                  GATHER["zero-length-runs"][1]):
+        bounds, total = bounds_of(freqs)
+        want = np.repeat(np.arange(len(freqs)), freqs)
+        ref = np.asarray(jax_ops.expand_indices(jnp.asarray(bounds), total,
+                                                interpret=True))
+        np.testing.assert_array_equal(ref, want)
+        got = ops.expand_indices(torch.from_numpy(bounds), total)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bad", ["int64-payload", "int64-bounds", "shape",
+                                 "total", "no-runs"])
+def test_expand_gather_rejects_bad_inputs(bad):
+    payload = torch.zeros(4, dtype=torch.int32)
+    bounds = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
+    total, err = 4, ValueError
+    if bad == "int64-payload":
+        payload, err = payload.long(), TypeError
+    elif bad == "int64-bounds":
+        bounds, err = bounds.long(), TypeError
+    elif bad == "shape":
+        bounds = bounds[:3]
+    elif bad == "total":
+        total = 1 << 31
+    else:
+        payload, bounds = payload[:0], bounds[:0]
+    with pytest.raises(err):
+        expand_gather(payload, bounds, total)
+
+
+def test_expand_meta_takes_arrays_and_tensors():
+    bounds = np.asarray([2, 2, 7], np.int64)
+    for b in (bounds, torch.from_numpy(bounds)):
+        meta = ops.expand_meta(b, "cpu")
+        assert meta.dtype == torch.int32 and meta.is_contiguous()
+        np.testing.assert_array_equal(meta.numpy(), bounds)
+    with pytest.raises(ValueError):
+        ops.expand_meta(np.asarray([1, 1 << 31]), "cpu")
+
+
+def test_desummarize_twice_reuses_the_memoized_bounds():
+    """One _launch entry per level, made by the first call and reused by
+    the second; equal columns, equal to the numpy path."""
+    cat, queries = lastfm_like(n_users=150, n_artists=120,
+                               artists_per_user=5, friends_per_user=3)
+    gj = repro_torch.GraphicalJoin(cat, queries["lastfm_A1"], device="cpu")
+    gfjs = gj.run()
+    assert not gfjs._launch
+    first = engine.desummarize(gfjs, device="cpu")
+    entries = dict(gfjs._launch)
+    assert sorted(entries) == list(range(len(gfjs.levels)))
+    assert all(e[0] == torch.device("cpu") for e in entries.values())
+    second = engine.desummarize(gfjs, device="cpu")
+    assert all(gfjs._launch[lv] is e for lv, e in entries.items())
+    want = np_desummarize(gfjs, decode=False)
+    for v in gfjs.column_order:
+        assert torch.equal(first[v], second[v])
+        np.testing.assert_array_equal(first[v].numpy(), np.asarray(want[v]))
+    assert gfjs.aux_nbytes() == sum(
+        gfjs.bounds(lv).nbytes + e[1][0].nbytes for lv, e in entries.items())
+    # one entry per level: another device replaces it
+    ops.gfjs_expand_meta(gfjs, 0, "meta")
+    assert gfjs._launch[0][0] == torch.device("meta")
+    assert len(gfjs._launch) == len(gfjs.levels)

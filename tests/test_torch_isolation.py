@@ -1,7 +1,8 @@
 """The port stands alone: no jax, no ``repro``, and an explicit device.
 
 A child process with ``jax`` and ``repro`` blocked imports ``repro_torch``
-and runs Figure 1 on the CPU, desummarizes it and aggregates from it; a source scan finds no jax or ``repro``
+and runs Figure 1 on the CPU, desummarizes it and aggregates from it, then
+calls ``ops.dense_message`` and ``ops.rle_expand``; a source scan finds no jax or ``repro``
 import under ``src/repro_torch/`` or in ``chip_smoke.py``; and a ``cuda``
 entry point without a card raises instead of running on the CPU.
 """
@@ -18,6 +19,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import engine
+from repro_torch.core.potentials import Factor
 from repro_torch.relational.synth import figure1
 from repro_torch.summary.algebra import SummaryFrame
 
@@ -34,9 +36,16 @@ gj = repro_torch.GraphicalJoin(cat, q, device="cpu")
 gfjs = gj.run()
 rows = gj.desummarize(gfjs)
 by_a = gj.aggregate("count", by=["A"], gfjs=gfjs)
+import torch
+from repro_torch.kernels import ops
+msg = ops.dense_message(torch.ones((2, 3), dtype=torch.int32),
+                        torch.full((3, 1), 7, dtype=torch.int32))
+col = ops.rle_expand(torch.tensor([4, 5], dtype=torch.int32),
+                     torch.tensor([2, 3], dtype=torch.int32), 3)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
-print(len(rows["A"]), by_a["A"].tolist(), by_a["count"].tolist())
+print(len(rows["A"]), by_a["A"].tolist(), by_a["count"].tolist(),
+      msg[:, 0].tolist(), col.tolist())
 """
 
 
@@ -45,7 +54,7 @@ def test_port_runs_with_jax_and_reference_blocked():
     res = subprocess.run([sys.executable, "-c", CHILD], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "32 ['a3'] [32]"
+    assert res.stdout.strip() == "32 ['a3'] [32] [21, 21] [4, 4, 5]"
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:[.\s]|$)", re.M)
@@ -62,7 +71,8 @@ def test_source_imports_neither_jax_nor_reference():
 
 @pytest.mark.parametrize("entry", ["facade", "generate", "desummarize",
                                    "build_factor", "segment_weighted_sum",
-                                   "group_runs_device", "summary_frame"])
+                                   "group_runs_device", "summary_frame",
+                                   "maybe_dense_message"])
 def test_cuda_without_a_card_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cat, q = figure1()
@@ -82,6 +92,9 @@ def test_cuda_without_a_card_raises(monkeypatch, entry):
             np.zeros(3, np.int32), ones, ones, 1),
         "group_runs_device": lambda: engine.group_runs_device(ones),
         "summary_frame": lambda: SummaryFrame.of(gfjs),
+        "maybe_dense_message": lambda: engine.maybe_dense_message(
+            Factor(("P", "V"), np.zeros((1, 2), np.int64), ones[:1],
+                   ones[:1], (1, 1)), "V", ones[:1]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

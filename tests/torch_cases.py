@@ -112,3 +112,106 @@ def boundaries_cases():
     cases["int64-min-max"] = np.asarray(
         [np.iinfo(np.int64).min, -1, 0, 0, np.iinfo(np.int64).max], np.int64)
     return cases
+
+
+EXPAND_TILE = 256    # expand_many.cu's threads per block
+
+
+def gather_cases():
+    """name -> (payload [runs] int32 or float32, freqs [runs]): the edge
+    cases of the single-payload expansion (expand_gather)."""
+    cases = {}
+    for n_runs in (1, 7, 500, 513, 2048):       # test_expand_gather_shapes
+        for dt in (np.int32, np.float32):
+            rng = np.random.default_rng(n_runs)
+            freqs = rng.integers(1, 9, size=n_runs)
+            cases[f"sweep-{n_runs}-{np.dtype(dt).name}"] = (
+                rng.integers(0, 1 << 20, n_runs).astype(dt), freqs)
+    cases["single-run"] = (np.asarray([-5], np.int32), np.asarray([11]))
+    rng = np.random.default_rng(21)
+    freqs = rng.integers(0, 4, 900)
+    freqs[::5] = 0
+    freqs[:3] = freqs[-3:] = 0
+    cases["zero-length-runs"] = (
+        rng.integers(-(1 << 31), 1 << 31, 900).astype(np.int32), freqs)
+    cases["total-0"] = (np.arange(4, dtype=np.int32), np.zeros(4, np.int64))
+    cases["no-runs"] = (np.zeros(0, np.int32), np.zeros(0, np.int64))
+    bits = np.asarray([0x7FC00000, 0x7FA00001, 0xFFC00001, 0x80000000,
+                       0x00000000, 0x7F800000, 0xFF800000, 0x00000001,
+                       0x3F800000, 0xBF800000], np.uint32)
+    bits = np.concatenate([bits, rng.integers(0, 1 << 32, 300,
+                                              dtype=np.uint32)])
+    cases["float-nan-negzero-bits"] = (
+        bits.view(np.float32), rng.integers(0, 6, len(bits)))
+    for total in (8 * EXPAND_TILE - 1, 8 * EXPAND_TILE, 8 * EXPAND_TILE + 1):
+        freqs = np.ones(total, np.int64)            # every run one thread
+        cases[f"tile-edge-{total}"] = (
+            rng.integers(0, 1 << 30, total).astype(np.int32), freqs)
+    freqs = rng.integers(1, 16, 250_000)            # past the grid stride
+    cases["grid-stride"] = (
+        rng.integers(0, 1 << 30, len(freqs)).astype(np.int32), freqs)
+    return cases
+
+
+DENSE_SIZES = (1, 63, 64, 65, 1025)   # about dense_message.cu's 64-wide tile
+
+
+def dense_cases():
+    """name -> (phi [P, V], m [V, K]) for dense_message: int32 counts or
+    float32 integers whose f32 sums stay exact (below 2^24)."""
+    cases = {}
+    for p in DENSE_SIZES:
+        for v in DENSE_SIZES:
+            for k in DENSE_SIZES:
+                rng = np.random.default_rng(p * 1_000_003 + v * 1009 + k)
+                phi = rng.integers(0, 100, (p, v))
+                m = rng.integers(0, 100, (v, k))
+                cases[f"counts-{p}x{v}x{k}"] = (phi.astype(np.int32),
+                                                m.astype(np.int32))
+                cases[f"float-{p}x{v}x{k}"] = (phi.astype(np.float32),
+                                               m.astype(np.float32))
+    rng = np.random.default_rng(22)
+    for dt, tag in ((np.int32, "counts"), (np.float32, "float")):
+        for name, (p, v, k) in (("P", (0, 5, 3)), ("V", (4, 0, 3)),
+                                ("K", (4, 5, 0))):
+            cases[f"{tag}-empty-{name}"] = (np.ones((p, v), dt),
+                                            np.ones((v, k), dt))
+    # products past 2^24 and 2^47, row sums past 2^40 (and 2^55)
+    cases["counts-past-2^40"] = (
+        rng.integers(1 << 23, 1 << 24, (65, 300)).astype(np.int32),
+        rng.integers(1 << 23, 1 << 24, (300, 3)).astype(np.int32))
+    # products near 2^62 summed past 2^63: int64 wraps, as numpy's does
+    cases["counts-int64-wrap"] = (
+        rng.integers((1 << 31) - (1 << 20), 1 << 31, (3, 64)).astype(np.int32),
+        rng.integers((1 << 31) - (1 << 20), 1 << 31, (64, 2)).astype(np.int32))
+    cases["counts-negative"] = (
+        rng.integers(-(1 << 31), 1 << 31, (65, 129)).astype(np.int32),
+        rng.integers(-(1 << 31), 1 << 31, (129, 5)).astype(np.int32))
+    cases["float-negative"] = (
+        rng.integers(-100, 100, (65, 1025)).astype(np.float32),
+        rng.integers(-100, 100, (1025, 5)).astype(np.float32))
+    # the reference's maybe_dense_message rounds this one (16,785,408)
+    cases["counts-f32-rounding"] = (np.asarray([[4097, 1]], np.int32),
+                                    np.asarray([[4097], [1]], np.int32))
+    return cases
+
+
+def dense_oracle(phi, m):
+    """numpy's answer: int64 (wrapping) for counts, f64 rounded to f32."""
+    if phi.dtype == np.float32:
+        return (phi.astype(np.float64) @ m.astype(np.float64)) \
+            .astype(np.float32)
+    return phi.astype(np.int64) @ m.astype(np.int64)
+
+
+def numpy_message(phi, child, msg):
+    """The numpy route of a message (``multiply`` then ``marginalize_out``),
+    scattered into a dense int64 vector over the parent's codes."""
+    ci = phi.var_index(child)
+    V, P = phi.sizes[ci], phi.sizes[1 - ci]
+    mf = type(phi).message((child,), np.arange(V)[:, None],
+                           np.asarray(msg, np.int64), (V,))
+    out = phi.multiply(mf).marginalize_out(child)
+    dense = np.zeros(P, np.int64)
+    dense[out.keys[:, 0]] = out.fac
+    return dense
