@@ -38,7 +38,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    shapes): exact against its plain version, and timed with CUDA events
    beside its bound, the plain version and one PyTorch call computing the
    same function where there is one (``repeat_interleave``, ``index_add_``,
-   ``torch.matmul``);
+   ``torch.matmul``); the dense message also per call in a CUDA graph (the card's time without the
+   host's launch cost), cold (rotating over copies of phi that overflow
+   L2) beside warm, and swept over K, thin kernel against tiled; each
+   redesigned kernel's time under its previous design beside its new one;
 9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
@@ -51,6 +54,7 @@ path), and again around phase 7's path (``expand_gather``,
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -72,6 +76,17 @@ IMAD_PER_CLOCK_PER_SM = 64
 DENSE_MACS_PER_STEP = 4 * 4 * 16
 LASTFM_2K = dict(n_users=1892, n_artists=17632, artists_per_user=49,
                  friends_per_user=7, seed=0)
+L2_BYTES = 50 * 2**20              # H100 SXM; the device's own where known
+# the times of the two redesigned kernels under their previous designs (a
+# thread per output; 64 x 64 tiles at every K), from this script on an
+# H100 80GB HBM3 at 700 W (PERF.md §6); expand_many's is the kernels
+# line's sum over lastfm_A1's shapes
+PREVIOUS_MS = {("dense_message", 1892, 1892, 1, "int32"): 0.2843,
+               ("dense_message", 2048, 2048, 128, "float32"): 0.1391,
+               ("dense_message", 2048, 2048, 128, "int32"): 0.3426,
+               ("expand_gather", "lastfm_A1"): 0.5639,
+               ("expand_gather", "benchmark"): 0.1221,
+               ("expand_many", "lastfm_A1"): 2.9388}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -153,10 +168,17 @@ def edge_cases():
 
 
 def check_edge_cases(dev) -> int:
+    """expand_many against its plain version and np.repeat on the cases
+    above and on the card tests' (tests/torch_cases.py: the per-tile run
+    window's edges, rows off the 16-byte grid, Zipf run lengths)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import expand_cases
     from repro_torch.kernels.expand_many import expand_many
     from repro_torch.kernels.ref import expand_many_ref
     err = 0
-    for name, payloads, freqs in edge_cases():
+    cases = edge_cases() + [(n, p, f) for n, (p, f) in
+                            sorted(expand_cases().items())]
+    for name, payloads, freqs in cases:
         bounds = np.cumsum(freqs).astype(np.int32)
         total = int(bounds[-1]) if len(bounds) else 0
         p = torch.from_numpy(payloads).to(dev)
@@ -170,7 +192,8 @@ def check_edge_cases(dev) -> int:
         oracle = np.stack([np.repeat(r, freqs) for r in payloads])
         check(np.array_equal(got.cpu().numpy(), oracle), f"{name}: np.repeat")
         err = max(err, e)
-    print(f"edge cases: {len(edge_cases())} exact against the plain version")
+    print(f"edge cases: expand_many {len(cases)} exact against the plain "
+          f"version")
     return err
 
 
@@ -228,15 +251,17 @@ def dense_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def check_message_kernel_cases(dev):
     """expand_gather and dense_message against their plain versions on the
     card tests' edge cases (tests/torch_cases.py): a single run,
-    zero-length runs, total 0, float32 payloads whose NaN and -0.0 bit
-    patterns must survive, totals at a block edge; P, V, K in {1, 63, 64,
-    65, 1025}, empty dimensions, products and sums past 2^24 and 2^40,
-    int64 wrapping, negative counts, and float32 sums of integers below
-    2^24 (exact in the kernel's f32 and the plain version's f64).  All
-    exact (float payloads bit for bit).  Returns each kernel's largest
-    error."""
+    zero-length runs (100,000 in one tile), total 0, float32 payloads whose
+    NaN and -0.0 bit patterns must survive, totals at a block and a tile
+    edge, a run over many tiles; P, V, K in {1, 63, 64, 65, 1025}, K about
+    THIN_K, V % 4 in {0, 1, 3}, P = 1 with V = 2^20 (the V split),
+    misaligned offset views, empty dimensions, products and sums past 2^24
+    and 2^40, int64 wrapping, negative counts, and float32 sums of
+    integers below 2^24 (exact in the kernel's f32 and the plain version's
+    f64).  All exact (float payloads bit for bit).  Returns each kernel's
+    largest error."""
     sys.path.insert(0, str(ROOT / "tests"))
-    from torch_cases import dense_cases, gather_cases
+    from torch_cases import dense_cases, dense_tensors, gather_cases
     from repro_torch.kernels.dense_message import dense_message
     from repro_torch.kernels.expand_gather import expand_gather
     from repro_torch.kernels.ref import dense_message_ref, expand_gather_ref
@@ -260,7 +285,7 @@ def check_message_kernel_cases(dev):
     d_err = 0
     dcases = dense_cases()
     for name, (phi, m) in dcases.items():
-        a, b = torch.from_numpy(phi).to(dev), torch.from_numpy(m).to(dev)
+        a, b = dense_tensors(name, phi, m, dev)
         got, want = dense_message(a, b), dense_message_ref(a, b)
         sync(dev)
         check(got.dtype == want.dtype and got.shape == want.shape,
@@ -713,6 +738,46 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int):
+    """Per-call ms of ``reps`` calls of ``fn`` captured in one CUDA graph
+    and replayed twice: the card's time without the host's cost of each
+    launch (which bounds a per-call loop of kernels shorter than it).
+    None, and said so, where the capture fails."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as exc:        # a measurement, not a check
+        print(f"  CUDA graph capture failed: {exc}")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (2 * reps)
+
+
+def fmt_ms(ms) -> str:
+    return "n/a" if ms is None else f"{ms:.4f}ms"
+
+
+def beside(before) -> str:
+    """A redesigned kernel's time under its previous design, printed beside
+    its new one."""
+    return "" if before is None else f", previous design {before:.4f}ms"
+
+
 def shape_inputs(shape, gfjs, dev, seed):
     """The launch's inputs: the real GFJS level for a desummarize launch,
     seeded inputs of the recorded (K, runs, total) for a generation one."""
@@ -736,12 +801,15 @@ def shape_inputs(shape, gfjs, dev, seed):
 
 
 def measure_shape(shape, gfjs, dev, seed) -> dict:
+    """One expand_many launch shape: exact against the plain version, then
+    timed (CUDA events) beside its HBM bound, the plain version and
+    ``repeat_interleave``."""
     from repro_torch.kernels.expand_many import expand_many
     from repro_torch.kernels.ref import expand_many_ref
     k, runs, total = shape["k"], shape["runs"], shape["total"]
     payloads, bounds = shape_inputs(shape, gfjs, dev, seed)
-    got = expand_many(payloads, bounds, total)
     want = expand_many_ref(payloads, bounds, total)
+    got = expand_many(payloads, bounds, total)
     err = max_abs_err(got, want)
     check(err == 0, f"kernel vs plain at {shape}: {err}")
     del got, want
@@ -749,16 +817,21 @@ def measure_shape(shape, gfjs, dev, seed) -> dict:
         1, dtype=torch.int64, device=dev))
     reps = 20 if k * total < (1 << 28) else 5
     ms = cuda_ms(lambda: expand_many(payloads, bounds, total), reps)
+    # the launches a host can issue faster than the card runs them (a
+    # graph holds every output of its calls, so not the large ones)
+    graph = graph_ms(lambda: expand_many(payloads, bounds, total), reps) \
+        if k * total <= 1 << 24 else None
     plain_ms = cuda_ms(lambda: expand_many_ref(payloads, bounds, total), reps)
     library_ms = cuda_ms(lambda: torch.repeat_interleave(
         payloads, counts, dim=1, output_size=total), reps)
     nbytes = (k * total + k * runs + runs) * 4
-    row = dict(shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bytes=nbytes,
+    row = dict(shape, max_abs_err=err, ms=ms, graph_ms=graph, plain_ms=plain_ms, library_ms=library_ms,
+               bytes=nbytes,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     row.pop("t0", None)
     print(f"  {shape['query']} {shape['phase']:<11s} K={k} runs={runs} "
-          f"total={total}: kernel {ms:.4f}ms, bound {row['bound_ms']:.4f}ms "
+          f"total={total}: kernel {ms:.4f}ms ({fmt_ms(graph)} in a CUDA "
+          f"graph), bound {row['bound_ms']:.4f}ms "
           f"({row['bound_ms'] / ms:.3f} of bound), plain {plain_ms:.4f}ms, "
           f"repeat_interleave {library_ms:.4f}ms")
     return row
@@ -837,9 +910,9 @@ def measure_summary_shape(key, launches, dev, seed) -> dict:
 
 def counts_instr_per_mac() -> float:
     """SASS instructions per 32 x 32 -> 64-bit multiply-add in the counts
-    instantiation of dense_message (``IMAD.WIDE``, signed; the unsigned
-    ones compute addresses), from ``cuobjdump -sass`` of the built
-    library; 1.0, and said so, where cuobjdump cannot be run."""
+    instantiation of dense_message's tiled kernel (``IMAD.WIDE``, signed;
+    the unsigned ones compute addresses), from ``cuobjdump -sass`` of the
+    built library; 1.0, and said so, where cuobjdump cannot be run."""
     import re
     from repro_torch.kernels import build
     lib = build.load("dense_message")._name
@@ -852,7 +925,8 @@ def counts_instr_per_mac() -> float:
               f"multiply-add")
         return 1.0
     body = next(f for f in sass.split("Function : ")[1:]
-                if "Counts" in f.split()[0])
+                if "dense_message_kernel" in f.split()[0]
+                and "Counts" in f.split()[0])
     n = len(re.findall(r"\bIMAD\.WIDE ", body))
     print(f"  SASS of the counts kernel: {n} IMAD.WIDE for "
           f"{DENSE_MACS_PER_STEP} multiply-adds per unrolled step")
@@ -890,13 +964,18 @@ def message_shapes(tracers) -> dict:
     return shapes
 
 
-def measure_dense_shape(p, v, k, dtype, launches, dev, seed, rates) -> dict:
+def measure_dense_shape(p, v, k, dtype, launches, dev, seed, rates,
+                        cold=False) -> dict:
     """dense_message at [p, v] @ [v, k] on seeded counts in [0, 100):
     exact against the plain version, then timed beside its bound (the
     larger of HBM bytes and multiply-adds at the type's rate), the plain
     version and ``torch.matmul`` (TF32 off; for counts, on float64 copies,
-    the nearest library call, exact only while sums stay below 2^53)."""
-    from repro_torch.kernels.dense_message import dense_message
+    the nearest library call, exact only while sums stay below 2^53).
+    Kernel and library are timed per call (CUDA events around a loop of
+    calls) and in a CUDA graph, warm (one phi, which L2 holds) and, with
+    ``cold``, rotating over copies of phi that together pass twice the
+    L2, so each call reads its phi from HBM."""
+    from repro_torch.kernels.dense_message import THIN_K, dense_message
     from repro_torch.kernels.ref import dense_message_ref
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = torch.int32 if dtype == "int32" else torch.float32
@@ -912,17 +991,37 @@ def measure_dense_shape(p, v, k, dtype, launches, dev, seed, rates) -> dict:
     counts = dt == torch.int32
     reps = 20
     ms = cuda_ms(lambda: dense_message(phi, m), reps)
+    graph = graph_ms(lambda: dense_message(phi, m), reps)
     plain_ms = cuda_ms(lambda: dense_message_ref(phi, m), reps)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    cold_row = None
     try:
         if counts:
             a, b = phi.double(), m.double()
-            library_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
             lib_name = "float64 torch.matmul"
         else:
-            library_ms = cuda_ms(lambda: torch.matmul(phi, m), reps)
+            a, b = phi, m
             lib_name = "torch.matmul, TF32 off"
+        library_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
+        library_graph = graph_ms(lambda: torch.matmul(a, b), reps)
+        if cold:
+            l2 = getattr(torch.cuda.get_device_properties(dev),
+                         "L2_cache_size", 0) or L2_BYTES
+            copies = -(-2 * l2 // (phi.numel() * phi.element_size())) + 1
+            phis = itertools.cycle([phi.clone() for _ in range(copies)])
+            kern = lambda: dense_message(next(phis), m)  # noqa: E731
+            cold_ms = cuda_ms(kern, 3 * copies)
+            cold_graph = graph_ms(kern, 3 * copies)
+            libs = itertools.cycle([phi.to(a.dtype, copy=True)
+                                    for _ in range(copies)])
+            lib = lambda: torch.matmul(next(libs), b)  # noqa: E731
+            cold_lib = cuda_ms(lib, 3 * copies)
+            cold_lib_graph = graph_ms(lib, 3 * copies)
+            del phis, libs
+            cold_row = dict(copies=copies, l2_bytes=l2, ms=cold_ms,
+                            graph_ms=cold_graph, library_ms=cold_lib,
+                            library_graph_ms=cold_lib_graph)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     nbytes = (p * v + v * k) * 4 + p * k * (8 if counts else 4)
@@ -933,15 +1032,74 @@ def measure_dense_shape(p, v, k, dtype, launches, dev, seed, rates) -> dict:
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     label = f"[{p},{v}]@[{v},{k}] {'counts' if counts else 'float32'}"
-    print(f"  dense_message {label} (x{launches}): kernel {ms:.4f}ms, bound "
-          f"{bound_ms:.4f}ms by {bound_by} ({bound_ms / ms:.3f} of bound; "
-          f"bytes {bytes_ms:.4f}ms, operations {ops_ms:.4f}ms), plain "
-          f"{plain_ms:.4f}ms, {lib_name} {library_ms:.4f}ms")
+    path = "thin" if k <= THIN_K else "tiled"
+    key = ("dense_message", p, v, k, dtype)
+    before = PREVIOUS_MS.get(key)
+    print(f"  dense_message {label} (x{launches}, {path} kernel): kernel "
+          f"{ms:.4f}ms per call, {fmt_ms(graph)} in a CUDA graph; bound "
+          f"{bound_ms:.4f}ms by {bound_by} ({bound_ms / ms:.3f} of bound per "
+          f"call; bytes {bytes_ms:.4f}ms, operations {ops_ms:.4f}ms), plain "
+          f"{plain_ms:.4f}ms, {lib_name} {library_ms:.4f}ms per call, "
+          f"{fmt_ms(library_graph)} in a graph{beside(before)}")
+    if cold_row is not None:
+        c = cold_row
+        share = "" if c["graph_ms"] is None else \
+            f" ({bytes_ms / c['graph_ms']:.3f} of the HBM bound)"
+        print(f"    cold, over {c['copies']} copies of phi: kernel "
+              f"{c['ms']:.4f}ms per call, {fmt_ms(c['graph_ms'])} in a "
+              f"graph{share}; {lib_name} {c['library_ms']:.4f}ms per call, "
+              f"{fmt_ms(c['library_graph_ms'])} in a graph")
     return dict(kernel="dense_message", shape=[p, v, k], dtype=dtype,
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, library=lib_name, bytes=nbytes,
-                macs=macs, bytes_ms=bytes_ms, ops_ms=ops_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                path=path, launches=launches, max_abs_err=err, ms=ms,
+                graph_ms=graph, plain_ms=plain_ms, library_ms=library_ms,
+                library_graph_ms=library_graph, library=lib_name,
+                bytes=nbytes, macs=macs, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=bound_ms, bound_by=bound_by, cold=cold_row,
+                previous_ms=before)
+
+
+def dense_k_sweep(dev, seed) -> list:
+    """The thin kernel against the tiled one at the Last.fm message's phi,
+    [1892, 1892] @ [1892, K] counts, K from 1 to 64: exact against each
+    other and the plain version, then timed per call and in a CUDA graph.
+    The widest K through which the thin kernel is the faster in the graph
+    is the crossover that sets THIN_K."""
+    from repro_torch.kernels.dense_message import (THIN_K, THIN_MAX_K,
+                                                   dense_message)
+    from repro_torch.kernels.ref import dense_message_ref
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    phi = torch.randint(0, 100, (1892, 1892), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rows = []
+    for k in (1, 2, 4, 8, 16, 32, 64):
+        m = torch.randint(0, 100, (1892, k), generator=gen, device=dev,
+                          dtype=torch.int32)
+        thin = dense_message(phi, m, _thin_k=THIN_MAX_K)
+        check(torch.equal(thin, dense_message(phi, m, _thin_k=0))
+              and torch.equal(thin, dense_message_ref(phi, m)),
+              f"dense_message K sweep: thin, tiled and plain differ at K={k}")
+        row = dict(k=k)
+        for path, tk in (("thin", THIN_MAX_K), ("tiled", 0)):
+            row[f"{path}_ms"] = cuda_ms(
+                lambda: dense_message(phi, m, _thin_k=tk), 20)
+            row[f"{path}_graph_ms"] = graph_ms(
+                lambda: dense_message(phi, m, _thin_k=tk), 20)
+        rows.append(row)
+        print(f"  K={k}: thin {row['thin_ms']:.4f}ms per call, "
+              f"{fmt_ms(row['thin_graph_ms'])} in a graph; tiled "
+              f"{row['tiled_ms']:.4f}ms per call, "
+              f"{fmt_ms(row['tiled_graph_ms'])} in a graph")
+    cross = 0
+    for row in rows:
+        t, w = row["thin_graph_ms"], row["tiled_graph_ms"]
+        if t is None or w is None:
+            t, w = row["thin_ms"], row["tiled_ms"]
+        if t >= w:
+            break
+        cross = row["k"]
+    print(f"  the thin kernel is the faster through K={cross}; the wrapper's "
+          f"THIN_K = {THIN_K}")
+    return rows
 
 
 def measure_gather_shape(runs, launches, dev, seed, level=None) -> dict:
@@ -975,14 +1133,16 @@ def measure_gather_shape(runs, launches, dev, seed, level=None) -> dict:
         payload, freqs, output_size=total), reps)
     nbytes = (total + 2 * runs) * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    before = PREVIOUS_MS[("expand_gather",
+                    "benchmark" if level is None else "lastfm_A1")]
     print(f"  expand_gather runs={runs} total={total} (x{launches}): kernel "
           f"{ms:.4f}ms, bound {bound_ms:.4f}ms ({bound_ms / ms:.3f} of "
           f"bound), plain {plain_ms:.4f}ms, repeat_interleave "
-          f"{library_ms:.4f}ms")
+          f"{library_ms:.4f}ms{beside(before)}")
     return dict(kernel="expand_gather", runs=runs, total=total,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bytes=nbytes, bound_ms=bound_ms,
-                bound_by="bytes")
+                bound_by="bytes", previous_ms=before)
 
 
 def kernel_row(name, rows, launches, err, source, replaces) -> dict:
@@ -1082,16 +1242,21 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     del a2["gfjs"]
 
     expand_gather.launches = dense_message.launches = 0
+    dense_message.thin_launches = 0
     fb2 = fallbacks.value
     msg_tracers: list = []
     dense = run_dense_and_api(cat, queries, a1, a2, dev, msg_tracers)
     message_launches = {"expand_gather": expand_gather.launches,
                         "dense_message": dense_message.launches}
+    thin_launches = dense_message.thin_launches
     for name, n in message_launches.items():
         check(n > 0, f"the dense message path launched no {name} kernel")
+    check(thin_launches == message_launches["dense_message"],
+          f"{thin_launches} of the path's {dense_message.launches} "
+          f"dense_message launches took the thin kernel")
     check(fallbacks.value == fb2, "numpy fallbacks on the dense message path")
-    print(f"dense message path: launches {message_launches}, numpy "
-          f"fallbacks=0")
+    print(f"dense message path: launches {message_launches} (dense_message: "
+          f"{thin_launches} thin), numpy fallbacks=0")
     phi12, m_ua = dense.pop("_split_args")
     dense_split(phi12, "U2", m_ua, dev)            # warm
     dense["split"] = dense_split(phi12, "U2", m_ua, dev)
@@ -1121,7 +1286,8 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     print(f"  one lastfm_A1 run's {len(a1_rows)} launches: kernel "
           f"{total['ms']:.4f}ms, bound {total['bound_ms']:.4f}ms, plain "
           f"{total['plain_ms']:.4f}ms, repeat_interleave "
-          f"{total['library_ms']:.4f}ms")
+          f"{total['library_ms']:.4f}ms"
+          f"{beside(PREVIOUS_MS[('expand_many', 'lastfm_A1')])}")
     err = max([err] + [r["max_abs_err"] for r in rows])
 
     shapes = summary_shapes(tracers)
@@ -1143,17 +1309,21 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     message_rows = []
     for i, (key, n) in enumerate(sorted(mshapes.items())):
         if key[0] == "dense_message":
-            message_rows.append(measure_dense_shape(*key[1:], n, dev, i,
-                                                    rates))
+            message_rows.append(measure_dense_shape(
+                *key[1:], n, dev, i, rates, cold=True))
         else:
             runs = key[1]
             level = next(lv for lv in a1["gfjs"].levels
                          if lv.num_runs == runs and "A2" in lv.vars)
-            message_rows.append(measure_gather_shape(runs, n, dev, i, level))
+            message_rows.append(measure_gather_shape(runs, n, dev, i,
+                                                     level))
     for j, dtype in enumerate(("float32", "int32")):
         message_rows.append(measure_dense_shape(2048, 2048, 128, dtype, 0,
                                                 dev, 100 + j, rates))
     message_rows.append(measure_gather_shape(1_000_000, 0, dev, 102))
+    print("dense_message K sweep at [1892, 1892] @ [1892, K] counts, thin "
+          "kernel against tiled:")
+    k_sweep = dense_k_sweep(dev, 103)
 
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
@@ -1164,7 +1334,9 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             lastfm_A2=a2, launches=launches,
             summary_launches=summary_launches, dense=dense,
             message_shapes=message_rows, message_launches=message_launches,
-            rates=rates), indent=1))
+            thin_launches=thin_launches, k_sweep=k_sweep, rates=rates,
+            previous_ms={"/".join(map(str, k)): v
+                         for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(
         name="expand_many", route="cuda",
         source="src/repro_torch/kernels/csrc/expand_many.cu",

@@ -7,7 +7,10 @@ of inclusive prefix sums ``bounds[runs]``; the result is the contiguous
 launches it once per GFJS level, generation once per psi.
 
 Bound on the H100: HBM bytes, ``(K*total + K*runs + runs) * 4`` over
-3.35 TB/s (see the source for what the design does about it).
+3.35 TB/s.  A block owns a tile of 2,048 outputs: it finds the tile's
+run window with two searches, marks where each run begins in shared
+memory, max-scans that into every output's run, and stores each payload
+row as 16-byte vectors (see the source).
 
 A CPU tensor runs the plain version (``ref.expand_many_ref``); a CUDA tensor
 launches the kernel or raises.  ``expand_many.launches`` counts kernel
@@ -17,6 +20,7 @@ launches, and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,9 +30,9 @@ from repro_torch.kernels.ref import expand_many_ref
 I32_MAX = (1 << 31) - 1
 
 
-def _bind() -> ctypes.CDLL:
-    lib = build.load("expand_many")
-    fn = lib.expand_many_launch
+@functools.cache
+def _bind():
+    fn = build.load("expand_many").expand_many_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p]

@@ -26,7 +26,9 @@ from repro.kernels import ref as jax_ref
 from repro_torch.core import engine
 from repro_torch.core.potentials import Factor
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.dense_message import dense_message
+from repro_torch.kernels.dense_message import (MIN_SPLIT_V, ROWS_PER_BLOCK,
+                                               THIN_K, dense_message,
+                                               v_split)
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.relational.synth import lastfm_like
 
@@ -120,6 +122,28 @@ def test_non_contiguous_inputs():
     m = torch.from_numpy(rng.integers(0, 9, (6, 30)).astype(np.int32))
     got = ops.dense_message(phi.T.contiguous().T, m.T)
     assert torch.equal(got, phi.long() @ m.T.long())
+
+
+def test_thin_k_cases_sit_on_both_sides_of_the_crossover():
+    ks = {m.shape[1] for n, (phi, m) in CASES.items() if "-thin-" in n}
+    assert {THIN_K, THIN_K + 1} <= ks
+
+
+@pytest.mark.parametrize("p,v,sms", [(1892, 1892, 132), (1, 1 << 20, 132),
+                                     (500, 1892, 132), (10, 10_000, 132),
+                                     (1, 2047, 132), (7, 70_001, 132),
+                                     (1055, 5000, 132), (1, 1 << 30, 132),
+                                     (3, 9000, 114)])
+def test_v_split_covers_v(p, v, sms):
+    """Splits only where P rows leave SMs idle; steps of at least
+    MIN_SPLIT_V, multiples of 4, that cover V with none empty."""
+    splits, step = v_split(p, v, sms)
+    assert (splits - 1) * step < v <= splits * step
+    if splits == 1:
+        assert step == v
+    else:
+        assert p < sms * ROWS_PER_BLOCK and step % 4 == 0
+        assert step >= MIN_SPLIT_V and splits <= 65535
 
 
 # ---------------------------------------------------------------------------

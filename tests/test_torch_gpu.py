@@ -8,6 +8,8 @@ every pytest worker collects the same tests.  Exact comparisons, except
 adds in tile order, the plain version in another).  ``expand_gather``'s
 float payloads compare bit for bit; ``dense_message``'s float cases are
 sums of integers below 2^24, exact in f32 and in the plain version's f64.
+Both ``dense_message`` kernels (thin K and tiled) are held to the same
+oracles.
 """
 
 import numpy as np
@@ -18,7 +20,8 @@ import repro_torch
 from repro_torch.core import engine
 from repro_torch.core.potentials import Factor
 from repro_torch.kernels import ops
-from repro_torch.kernels.dense_message import dense_message
+from repro_torch.kernels.dense_message import (THIN_K, THIN_MAX_K,
+                                               dense_message, v_split)
 from repro_torch.kernels.expand_gather import expand_gather
 from repro_torch.kernels.expand_many import expand_many
 from repro_torch.kernels.mul_segsum import mul_segsum
@@ -30,8 +33,9 @@ from repro_torch.relational.synth import figure1, lastfm_like
 from repro_torch.summary.algebra import SummaryFrame
 
 from torch_cases import (boundaries_cases, bounds_of, dense_cases,
-                         dense_oracle, expand_cases, gather_cases,
-                         numpy_message, repeat_oracle, segsum_cases)
+                         dense_oracle, dense_tensors, expand_cases,
+                         gather_cases, numpy_message, repeat_oracle,
+                         segsum_cases)
 
 pytestmark = pytest.mark.gpu
 
@@ -64,6 +68,19 @@ def test_expand_many_kernel_matches_plain_version(name):
     assert torch.equal(got, expand_many_ref(p_t, b_t, total))
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   repeat_oracle(payloads, freqs))
+
+
+def test_expand_many_kernel_total_past_the_last_bound_is_clamped():
+    """Outside the callers' contract, as the plain version's clamp: the
+    outputs past the last bound take the last run, zero-length or not."""
+    dev = _card()
+    payloads = torch.arange(8, dtype=torch.int32, device=dev).view(2, 4)
+    for freqs in ([2, 1, 3, 0], [3, 0, 0, 0], [1, 2, 3, 4]):
+        bounds = torch.tensor(np.cumsum(freqs), dtype=torch.int32,
+                              device=dev)
+        total = int(bounds[-1]) + 5
+        assert torch.equal(expand_many(payloads, bounds, total),
+                           expand_many_ref(payloads, bounds, total))
 
 
 def test_expand_many_kernel_output_past_2_31_elements():
@@ -211,16 +228,72 @@ def test_expand_gather_kernel_matches_plain_version(name):
 def test_dense_message_kernel_matches_plain_version(name):
     dev = _card()
     phi, m = DENSE[name]
-    phi_t, m_t = torch.from_numpy(phi).to(dev), torch.from_numpy(m).to(dev)
+    phi_t, m_t = dense_tensors(name, phi, m, dev)
     launches = dense_message.launches
+    thin = dense_message.thin_launches
     got = dense_message(phi_t, m_t)
     torch.cuda.synchronize()
-    assert dense_message.launches == launches + int(min(phi.shape + m.shape)
-                                                    > 0)
+    launched = int(min(phi.shape + m.shape) > 0)
+    assert dense_message.launches == launches + launched
+    assert dense_message.thin_launches == thin + launched * int(
+        m.shape[1] <= THIN_K)
     want = dense_message_ref(phi_t, m_t)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want)
     np.testing.assert_array_equal(got.cpu().numpy(), dense_oracle(phi, m))
+
+
+@pytest.mark.parametrize("k", sorted({1, 2, THIN_K, THIN_K + 1, 64}))
+def test_dense_message_takes_the_thin_kernel_up_to_thin_k(k):
+    dev = _card()
+    rng = np.random.default_rng(k)
+    phi = rng.integers(0, 90, (100, 1892)).astype(np.int32)
+    m = rng.integers(0, 90, (1892, k)).astype(np.int32)
+    launches, thin = dense_message.launches, dense_message.thin_launches
+    got = dense_message(torch.from_numpy(phi).to(dev),
+                        torch.from_numpy(m).to(dev))
+    assert dense_message.launches == launches + 1
+    assert dense_message.thin_launches == thin + int(k <= THIN_K)
+    np.testing.assert_array_equal(got.cpu().numpy(), dense_oracle(phi, m))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64])
+@pytest.mark.parametrize("dtype", ["counts", "float"])
+def test_dense_message_thin_kernel_every_width(k, dtype):
+    """The thin kernel forced at every instantiation (K rounded up to a
+    power of two), and the tiled kernel forced at the same inputs."""
+    dev = _card()
+    rng = np.random.default_rng(k)
+    dt = np.int32 if dtype == "counts" else np.float32
+    phi = rng.integers(0, 90, (70, 1891)).astype(dt)
+    m = rng.integers(0, 90, (1891, k)).astype(dt)
+    phi_t, m_t = torch.from_numpy(phi).to(dev), torch.from_numpy(m).to(dev)
+    thin = dense_message.thin_launches
+    want = dense_oracle(phi, m)
+    np.testing.assert_array_equal(
+        dense_message(phi_t, m_t, _thin_k=THIN_MAX_K).cpu().numpy(), want)
+    assert dense_message.thin_launches == thin + 1
+    np.testing.assert_array_equal(
+        dense_message(phi_t, m_t, _thin_k=0).cpu().numpy(), want)
+    assert dense_message.thin_launches == thin + 1
+
+
+@pytest.mark.parametrize("p,v,k", [(1, 5000, 1), (7, 70_001, 3),
+                                   (500, 4099, 2), (1, (1 << 20) + 3, 1)])
+def test_dense_message_thin_kernel_splits_v(p, v, k):
+    """Fewer rows than the card has warps to fill: V is cut over blocks and
+    the splits summed by the second pass, the same on every run."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert v_split(p, v, sms)[0] > 1
+    rng = np.random.default_rng(p + v)
+    for dt in (np.int32, np.float32):
+        phi = rng.integers(0, 4, (p, v)).astype(dt)
+        m = rng.integers(0, 4, (v, k)).astype(dt)
+        phi_t, m_t = torch.from_numpy(phi).to(dev), torch.from_numpy(m).to(dev)
+        got = dense_message(phi_t, m_t)
+        np.testing.assert_array_equal(got.cpu().numpy(), dense_oracle(phi, m))
+        assert torch.equal(got, dense_message(phi_t, m_t))
 
 
 def test_dense_message_kernel_non_contiguous_inputs():
@@ -242,9 +315,10 @@ def test_maybe_dense_message_on_the_card_equals_the_cpu():
                                "U2": uf.columns["friendID"]},
                               {"U1": 1892, "U2": 1892})
     msg = np.bincount(ua.columns["userID"], minlength=1892).astype(np.int64)
-    launches = dense_message.launches
+    launches, thin = dense_message.launches, dense_message.thin_launches
     got = engine.maybe_dense_message(phi, "U2", msg, device=dev)
     assert dense_message.launches == launches + 1
+    assert dense_message.thin_launches == thin + 1      # K = 1: thin
     np.testing.assert_array_equal(
         got, engine.maybe_dense_message(phi, "U2", msg, device="cpu"))
     np.testing.assert_array_equal(got, numpy_message(phi, "U2", msg))

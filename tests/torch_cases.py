@@ -1,11 +1,18 @@
-"""Expansion cases shared by the CPU and the card tests of the port's kernel.
+"""Kernel cases shared by the CPU and the card tests of the port's kernels.
 
-Mirrors the cases of tests/test_expand_fused.py: the parity sweep, empty
-runs, a single run, K=1, a total that is not a tile multiple, and [K, 0]
-outputs.  Inputs are made with numpy from fixed seeds.
+The expansion cases mirror tests/test_expand_fused.py (the parity sweep,
+empty runs, a single run, K=1, a total that is not a tile multiple, and
+[K, 0] outputs) and add the edges of expand_many.cu's per-tile run window;
+the dense cases cover both dense_message kernels, thin and tiled.  Inputs
+are made with numpy from fixed seeds.
 """
 
 import numpy as np
+import torch
+
+from repro_torch.kernels.dense_message import THIN_K
+
+EXPAND_TILE = 2048   # expand_many.cu's outputs per block (kTile)
 
 
 def expand_cases():
@@ -38,7 +45,37 @@ def expand_cases():
     cases["all-runs-empty"] = (np.ones((4, 5), np.int32),
                                np.zeros(5, np.int64))
     cases["no-runs"] = (np.zeros((3, 0), np.int32), np.zeros(0, np.int64))
+    # the per-tile run window of expand_many.cu
+    for total in (EXPAND_TILE - 1, EXPAND_TILE, EXPAND_TILE + 1):
+        rng = np.random.default_rng(total)
+        freqs = lengths_to(rng, total, 1, 4)
+        cases[f"window-tile-{total}"] = (
+            rng.integers(0, 1 << 30, (2, len(freqs))).astype(np.int32), freqs)
+    rng = np.random.default_rng(40)
+    cases["run-spans-tiles"] = (
+        rng.integers(0, 1 << 30, (2, 5)).astype(np.int32),
+        np.asarray([3, 1, 5 * EXPAND_TILE + 17, 2, 1]))
+    freqs = np.minimum(rng.zipf(1.5, 1000), 2 * EXPAND_TILE)
+    cases["zipf"] = (rng.integers(0, 1 << 30, (3, 1000)).astype(np.int32),
+                     freqs)
+    # row q starts at word q * total: rows off the 16-byte grid
+    for k in (2, 7):
+        for mod in (1, 2, 3):
+            total = 2 * EXPAND_TILE + 100 + mod
+            freqs = lengths_to(rng, total, 1, 6)
+            cases[f"k{k}-total-mod4-{mod}"] = (
+                rng.integers(0, 1 << 30, (k, len(freqs))).astype(np.int32),
+                freqs)
     return cases
+
+
+def lengths_to(rng, total, lo, hi):
+    """Run lengths in [lo, hi) from ``rng`` that sum to exactly ``total``."""
+    freqs = rng.integers(lo, hi, total)
+    cut = int(np.searchsorted(np.cumsum(freqs), total))
+    freqs = freqs[:cut + 1].copy()
+    freqs[-1] -= int(freqs.sum()) - total
+    return freqs
 
 
 def bounds_of(freqs):
@@ -114,9 +151,6 @@ def boundaries_cases():
     return cases
 
 
-EXPAND_TILE = 256    # expand_many.cu's threads per block
-
-
 def gather_cases():
     """name -> (payload [runs] int32 or float32, freqs [runs]): the edge
     cases of the single-payload expansion (expand_gather)."""
@@ -143,13 +177,31 @@ def gather_cases():
                                               dtype=np.uint32)])
     cases["float-nan-negzero-bits"] = (
         bits.view(np.float32), rng.integers(0, 6, len(bits)))
-    for total in (8 * EXPAND_TILE - 1, 8 * EXPAND_TILE, 8 * EXPAND_TILE + 1):
+    for total in (2047, 2048, 2049):         # 8 blocks of 256 threads
         freqs = np.ones(total, np.int64)            # every run one thread
         cases[f"tile-edge-{total}"] = (
             rng.integers(0, 1 << 30, total).astype(np.int32), freqs)
     freqs = rng.integers(1, 16, 250_000)            # past the grid stride
     cases["grid-stride"] = (
         rng.integers(0, 1 << 30, len(freqs)).astype(np.int32), freqs)
+    # the per-tile run window of expand_many.cu
+    for total in (EXPAND_TILE - 1, EXPAND_TILE, EXPAND_TILE + 1):
+        rng = np.random.default_rng(1000 + total)
+        freqs = lengths_to(rng, total, 1, 4)
+        cases[f"window-tile-{total}"] = (
+            rng.integers(0, 1 << 30, len(freqs)).astype(np.int32), freqs)
+    rng = np.random.default_rng(23)
+    # 100,000 back-to-back zero-length runs inside one tile
+    freqs = np.concatenate([[EXPAND_TILE // 2 + 3], np.zeros(100_000, int),
+                            [EXPAND_TILE], np.zeros(5, int), [9]])
+    cases["zero-length-100000-in-one-tile"] = (
+        rng.integers(-(1 << 31), 1 << 31, len(freqs)).astype(np.int32), freqs)
+    cases["run-spans-tiles"] = (
+        rng.integers(0, 1 << 30, 3).astype(np.int32),
+        np.asarray([1, 9 * EXPAND_TILE + 5, 2]))
+    freqs = np.minimum(rng.zipf(1.5, 5000), 4 * EXPAND_TILE)
+    cases["zipf"] = (rng.standard_normal(len(freqs)).astype(np.float32),
+                     freqs)
     return cases
 
 
@@ -193,7 +245,64 @@ def dense_cases():
     # the reference's maybe_dense_message rounds this one (16,785,408)
     cases["counts-f32-rounding"] = (np.asarray([[4097, 1]], np.int32),
                                     np.asarray([[4097], [1]], np.int32))
+    # the thin kernel (K <= THIN_K) and the tiled one past it; values below
+    # 90 keep the float sums (< 90^2 * 1891) below 2^24
+    for k in sorted({2, 3, 4, 7, 8, 9, 16, 17, THIN_K, THIN_K + 1}):
+        rng = np.random.default_rng(500 + k)
+        phi = rng.integers(0, 90, (70, 1891))
+        m = rng.integers(0, 90, (1891, k))
+        cases[f"counts-thin-k{k}"] = (phi.astype(np.int32),
+                                      m.astype(np.int32))
+        cases[f"float-thin-k{k}"] = (phi.astype(np.float32),
+                                     m.astype(np.float32))
+    # each row's scalar head and tail about its 16-byte vectors (V % 4)
+    for v in (3, 4, 5, 1891):
+        rng = np.random.default_rng(600 + v)
+        phi = rng.integers(0, 90, (33, v))
+        m = rng.integers(0, 90, (v, 1))
+        cases[f"counts-v{v}-k1"] = (phi.astype(np.int32), m.astype(np.int32))
+        cases[f"float-v{v}-k1"] = (phi.astype(np.float32),
+                                   m.astype(np.float32))
+    # one row: V split over blocks, summed by the second pass
+    rng = np.random.default_rng(700)
+    cases["counts-split-1x2^20"] = (
+        rng.integers(-100, 100, (1, 1 << 20)).astype(np.int32),
+        rng.integers(-100, 100, ((1 << 20), 1)).astype(np.int32))
+    cases["float-split-1x2^20"] = (
+        rng.integers(0, 4, (1, 1 << 20)).astype(np.float32),
+        rng.integers(0, 4, ((1 << 20), 1)).astype(np.float32))
+    # misaligned pointers (see dense_tensors): V % 4 == 0, so only the
+    # offset moves the rows off the 16-byte grid
+    for k in (1, 3):
+        phi = rng.integers(0, 90, (65, 1892))
+        m = rng.integers(0, 90, (1892, k))
+        cases[f"counts-offset-k{k}"] = (phi.astype(np.int32),
+                                        m.astype(np.int32))
+        cases[f"float-offset-k{k}"] = (phi.astype(np.float32),
+                                       m.astype(np.float32))
+    # K = 1: sums past 2^40, and products near 2^62 where int64 wraps
+    cases["counts-past-2^40-k1"] = (
+        rng.integers(1 << 23, 1 << 24, (65, 1891)).astype(np.int32),
+        rng.integers(1 << 23, 1 << 24, (1891, 1)).astype(np.int32))
+    cases["counts-int64-wrap-k1"] = (
+        rng.integers((1 << 31) - (1 << 20), 1 << 31, (9, 64)).astype(np.int32),
+        rng.integers((1 << 31) - (1 << 20), 1 << 31, (64, 1)).astype(np.int32))
     return cases
+
+
+def dense_tensors(name, phi, m, device):
+    """``phi`` and ``m`` of a dense case as tensors on ``device``.  In an
+    ``-offset-`` case each is a contiguous view one element into a larger
+    buffer, as ``phi_full[1:]`` is, so its pointer is off the 16-byte
+    grid."""
+    def put(a):
+        t = torch.from_numpy(a).to(device)
+        if "-offset-" not in name:
+            return t
+        full = torch.empty(a.size + 1, dtype=t.dtype, device=device)
+        full[1:] = t.reshape(-1)
+        return full[1:].view(a.shape)
+    return put(phi), put(m)
 
 
 def dense_oracle(phi, m):
