@@ -14,10 +14,22 @@ Phases, each fatal on failure (exit code 1, no result line):
 4. ``lastfm_A1`` at Last.fm-2k scale (HetRec 2011: 1,892 users, 17,632
    artists) through ``repro_torch.GraphicalJoin(...).run()`` and
    ``.desummarize()`` on the card, held exactly against the same package's
-   numpy generation and numpy desummarization;
+   numpy generation and numpy desummarization.  ``desummarize`` runs after
+   ``run()`` (on the device memo that generation leaves: no upload, no
+   host prefix sums, both checked), again, and on a memo-free copy of the
+   GFJS (which uploads its levels), the three ``torch.equal``; each call's
+   ``engine:upload`` / ``engine:download`` bytes, ``summarize``'s split
+   between its ``gfjs:level:*`` and ``engine:download`` spans, the memo's
+   ``aux_nbytes``, peak device bytes, and the card's busy share of
+   ``run()`` and ``desummarize`` (profiler trace);
 5. ``lastfm_A2`` at the same scale, generated and desummarized on the card
    (codes kept on the device), checked by its join size, its column
-   lengths and windows against the numpy ``desummarize_range``;
+   lengths and windows against the numpy ``desummarize_range``; the same
+   three desummarize calls (the first call's columns freed before the
+   second; the memo-free copy's ``torch.equal`` to the second's), and the
+   routes that download a level's int32 codes as int64 (widened on the
+   card or on the host, pageable or through pinned staging) timed on its
+   deepest level;
 6. the summary side on the card: ``GraphicalJoin.aggregate`` over the
    GFJS of phases 4-5 (COUNT, GROUP BY, SUM, MEAN, a filtered GROUP BY, a
    store -> load -> GROUP BY round trip), each held against the same frame
@@ -56,6 +68,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -325,6 +338,78 @@ def level_seconds(tracer) -> str:
                      if s.name.startswith(("gfjs:level", "desummarize:level")))
 
 
+def traced_call(fn, dev, tracer) -> dict:
+    """One synchronized call of ``fn``: its result, wall seconds, and the
+    bytes and seconds of the ``engine:upload`` / ``engine:download`` spans
+    and the seconds of the ``gfjs:level:*`` spans it recorded."""
+    since = len(tracer.spans)
+    out, wall = timed(fn, dev)
+    spans = tracer.spans[since:]
+
+    def total(name, key):
+        return sum(s.seconds if key == "s" else s.args.get(key, 0)
+                   for s in spans if s.name.startswith(name))
+    return dict(out=out, wall=wall,
+                upload_bytes=total("engine:upload", "bytes"),
+                download_bytes=total("engine:download", "bytes"),
+                upload_s=total("engine:upload", "s"),
+                download_s=total("engine:download", "s"),
+                level_s=total("gfjs:level:", "s"),
+                expand_launches=sum(s.name == "kernel:rle_expand_many"
+                                    for s in spans),
+                identity_levels=sum(bool(s.args.get("identity"))
+                                    for s in spans
+                                    if s.name.startswith("desummarize:")))
+
+
+def fmt_call(name: str, c: dict) -> str:
+    return (f"  {name} {c['wall']:.4f}s: engine:upload {c['upload_bytes']} B "
+            f"({c['upload_s']:.4f}s), engine:download {c['download_bytes']} "
+            f"B ({c['download_s']:.4f}s), expand_many calls "
+            f"{c['expand_launches']}")
+
+
+def plain(c: dict) -> dict:
+    """A traced call's numbers, without its result (for ``--out``)."""
+    return {k: v for k, v in c.items() if k != "out"}
+
+
+def memo_free_copy(gfjs):
+    """The same summary rebuilt from its levels, as storage or the numpy
+    generator gives it: no device memo, so desummarize uploads it."""
+    from repro_torch.core.gfjs import GFJS
+    return GFJS(gfjs.levels, gfjs.column_order, gfjs.join_size,
+                gfjs.domains)
+
+
+def check_memo(gfjs, call: dict, what: str, host_bounds=()) -> None:
+    """A desummarize on the memo: no upload, and no host prefix sums
+    beyond ``host_bounds``, the levels whose ``GFJS.bounds`` a numpy path
+    (``desummarize_range``) had made before the call."""
+    check(call["upload_bytes"] == 0, f"{what} uploaded "
+          f"{call['upload_bytes']} B")
+    check(set(gfjs._bounds) == set(host_bounds),
+          f"{what} ran a host np.cumsum")
+
+
+def busy_share(fn, dev, wall: float) -> dict:
+    """The card's busy seconds over one profiled call of ``fn`` (kernels
+    plus copies, from the Chrome trace) against the wall seconds of an
+    unprofiled call of it."""
+    kern, copy, ours = device_seconds(fn, dev)
+    if kern is None:
+        return dict(kernels=None, copies=None, share=None)
+    return dict(kernels=kern, copies=copy, our_launches=ours,
+                share=(kern + copy) / wall)
+
+
+def fmt_busy(b: dict) -> str:
+    if b["share"] is None:
+        return "no device activity recorded"
+    return (f"busy {b['share']:.4%} ({b['kernels']:.6f}s kernels, "
+            f"{b['our_launches']} of ours, + {b['copies']:.6f}s copies)")
+
+
 def run_a1(cat, query, dev, tracer) -> dict:
     """lastfm_A1 on the device, exactly against the numpy path."""
     import repro_torch
@@ -332,16 +417,47 @@ def run_a1(cat, query, dev, tracer) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     gj = repro_torch.GraphicalJoin(cat, query, device=dev, tracer=tracer)
-    gfjs, t_run = timed(gj.run, dev)
-    codes, t_expand = timed(lambda: gj.desummarize(gfjs, decode=False), dev)
+    run = traced_call(gj.run, dev, tracer)
+    gfjs, t_run = run["out"], run["wall"]
+    aux = gfjs.aux_nbytes()
+    peak_run = torch.cuda.max_memory_allocated(dev) \
+        if dev.type == "cuda" else 0
+    first = traced_call(lambda: gj.desummarize(gfjs, decode=False), dev,
+                        tracer)
+    check_memo(gfjs, first, "lastfm_A1 desummarize after run()")
+    again = traced_call(lambda: gj.desummarize(gfjs, decode=False), dev,
+                        tracer)
+    check_memo(gfjs, again, "lastfm_A1 second desummarize")
+    copy = memo_free_copy(gfjs)
+    free = traced_call(lambda: gj.desummarize(copy, decode=False), dev,
+                       tracer)
+    codes = first["out"]
+    for v in codes:
+        check(torch.equal(codes[v], again["out"][v]), f"second {v}")
+        check(torch.equal(codes[v], free["out"][v]), f"memo-free copy {v}")
+    del again["out"], free["out"], copy
+    want_codes = np_desummarize(gfjs, decode=False)
+    for v in want_codes:
+        check(np.array_equal(codes[v].cpu().numpy(), want_codes[v]),
+              f"codes {v} vs numpy")
+    del want_codes
+    t_expand = first["wall"]
     host, t_d2h = timed(lambda: {v: c.cpu().numpy()
                                  for v, c in codes.items()}, dev)
     _, t_decode = timed(lambda: {v: gfjs.domains[v].decode(c)
                                  for v, c in host.items()}, dev)
-    del codes, host
+    del codes, host, first["out"]
     values, t_full = timed(lambda: gj.desummarize(gfjs), dev)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     phases = {k: float(v) for k, v in gj.timings.items()}
+
+    # the card's busy share of the main path: a second run() on a new
+    # facade, and a desummarize on the memo
+    again_gj = repro_torch.GraphicalJoin(cat, query, device=dev)
+    busy = dict(run=busy_share(again_gj.run, dev, t_run),
+                desummarize=busy_share(
+                    lambda: gj.desummarize(gfjs, decode=False), dev,
+                    t_expand))
 
     ref = repro_torch.GraphicalJoin(cat, query, device=dev,
                                     generation_backend="numpy")
@@ -364,54 +480,203 @@ def run_a1(cat, query, dev, tracer) -> dict:
           f"{[lvl.num_runs for lvl in gfjs.levels]}")
     print(f"  phases s: {json.dumps(phases)}")
     print(f"  run {t_run:.4f}s (numpy-generation run {t_ref:.4f}s, its "
-          f"summarize {ref.timings['summarize']:.4f}s); desummarize "
-          f"device expansion {t_expand:.4f}s, D2H {t_d2h:.4f}s, decode "
-          f"{t_decode:.4f}s, full decode=True {t_full:.4f}s")
+          f"summarize {ref.timings['summarize']:.4f}s); summarize split: "
+          f"gfjs:level:* spans {run['level_s']:.4f}s, engine:download "
+          f"spans {run['download_s']:.4f}s ({run['download_bytes']} B), "
+          f"engine:upload {run['upload_bytes']} B, expand_many calls "
+          f"{run['expand_launches']}")
+    print(f"  after run(): aux_nbytes {aux} (the device memo), peak device "
+          f"bytes {peak_run}")
+    for name, c in (("desummarize after run()", first), ("again", again),
+                    ("on a memo-free copy", free)):
+        print(fmt_call(name, c) + f", identity levels "
+              f"{c['identity_levels']}")
+    print(f"  desummarize D2H {t_d2h:.4f}s, decode {t_decode:.4f}s, full "
+          f"decode=True {t_full:.4f}s; all three calls' codes equal "
+          f"(torch.equal) and equal to numpy")
     print(f"  rows/s: device expansion {rows / t_expand:.6g}, "
           f"full {rows / t_full:.6g}; peak device bytes {peak}")
+    print(f"  card: run() {fmt_busy(busy['run'])}; desummarize "
+          f"{fmt_busy(busy['desummarize'])}")
     print(f"  level spans s: {level_seconds(tracer)}")
     print("  exact against the numpy path: GFJS levels and decoded columns")
     return dict(gfjs=gfjs, rows=rows, t_run=t_run, t_expand=t_expand,
                 t_d2h=t_d2h, t_decode=t_decode, t_full=t_full, peak=peak,
-                phases=phases, t_numpy_run=t_ref,
+                peak_run=peak_run, aux_nbytes=aux, run=plain(run),
+                first=plain(first), again=plain(again), memo_free=plain(free),
+                busy=busy, phases=phases, t_numpy_run=t_ref,
                 numpy_summarize=float(ref.timings["summarize"]))
 
 
+def staged_download(t: torch.Tensor, dtype) -> np.ndarray:
+    """The engine's staged download on one host thread: two reused pinned
+    buffers of ``STAGE_BYTES``, the card copying one chunk while the host
+    moves the one before out of its buffer (widening it on the way)."""
+    from repro_torch.core.engine import STAGE_BYTES
+    n = t.numel()
+    out = np.empty(n, dtype)
+    chunk = STAGE_BYTES // t.element_size()
+    bufs = [torch.empty(STAGE_BYTES, dtype=torch.uint8,
+                        pin_memory=True).view(t.dtype) for _ in range(2)]
+    done = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def copy_chunk(i):
+        lo = i * chunk
+        m = min(chunk, n - lo)
+        bufs[i % 2][:m].copy_(t[lo:lo + m], non_blocking=True)
+        done[i % 2].record()
+    chunks = -(-n // chunk)
+    if chunks:
+        copy_chunk(0)
+    for i in range(chunks):
+        if i + 1 < chunks:
+            copy_chunk(i + 1)
+        done[i % 2].synchronize()
+        lo = i * chunk
+        m = min(chunk, n - lo)
+        np.copyto(out[lo:lo + m], bufs[i % 2][:m].numpy())
+    return out
+
+
+def threaded_download(t: torch.Tensor, pool, threads: int) -> np.ndarray:
+    """A 1-D card tensor to a new numpy array of its dtype, pageable, one
+    slice for each of ``pool``'s ``threads``."""
+    n = t.numel()
+    out = np.empty(n, torch.empty(0, dtype=t.dtype).numpy().dtype)
+    host = torch.from_numpy(out)
+    step = -(-n // threads) if n else 1
+    list(pool.map(lambda lo: host[lo:lo + step].copy_(t[lo:lo + step]),
+                  range(0, n, step)))
+    return out
+
+
+def download_routes(codes: torch.Tensor, dev) -> dict:
+    """Seconds of the routes that bring int32 device codes home as int64
+    numpy (the ``LevelSummary`` contract), and an int64 array (the run
+    lengths) home, the engine's ``_download`` among them; each result
+    checked against the first."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import engine
+    threads = engine.STAGE_THREADS
+    mb = engine.STAGE_BYTES >> 20
+    pool = ThreadPoolExecutor(threads)
+    want = None
+    out = {}
+    wide = None
+    routes = {
+        "int32: widen on the card, pageable download":
+            lambda: codes.to(torch.int64).cpu().numpy(),
+        "int32: pageable download, widen on the host (the parent's)":
+            lambda: codes.cpu().numpy().astype(np.int64),
+        f"int32: pinned 2 x {mb} MB staging, widen on 1 host thread":
+            lambda: staged_download(codes, np.int64),
+        f"int32: engine._download, pinned 2 x {mb} MB staging, widen on "
+        f"{threads} host threads": lambda: engine._download(codes, np.int64),
+        f"int32: widen on the card, pageable download on {threads} threads":
+            lambda: threaded_download(codes.to(torch.int64), pool, threads),
+        "int64: pageable download (the parent's)":
+            lambda: wide.cpu().numpy(),
+        f"int64: engine._download, pinned 2 x {mb} MB staging, {threads} "
+        f"host threads": lambda: engine._download(wide),
+    }
+    for name, fn in routes.items():
+        if name.startswith("int64") and wide is None:
+            wide = codes.to(torch.int64)
+        got, t = timed(fn, dev)
+        if want is None:
+            want = got
+        else:
+            check(np.array_equal(got, want), f"download route {name}")
+        del got
+        out[name] = t
+    pool.shutdown()
+    return out
+
+
 def run_a2(cat, query, dev, tracer) -> dict:
-    """lastfm_A2 on the device; codes stay there; windows vs numpy."""
+    """lastfm_A2 on the device; codes stay there; windows vs numpy; the
+    memoized, repeated and memo-free desummarize equal."""
     import repro_torch
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     gj = repro_torch.GraphicalJoin(cat, query, device=dev, tracer=tracer)
-    gfjs, t_run = timed(gj.run, dev)
-    codes, t_expand = timed(lambda: gj.desummarize(gfjs, decode=False), dev)
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    run = traced_call(gj.run, dev, tracer)
+    gfjs, t_run = run["out"], run["wall"]
+    aux = gfjs.aux_nbytes()
+    peak_run = torch.cuda.max_memory_allocated(dev) \
+        if dev.type == "cuda" else 0
     rows = gfjs.join_size
     check(rows == gj.join_size() == gj.generator.join_size, "join size")
-    check(list(codes) == list(gfjs.column_order), "column order")
-    for v, c in codes.items():
-        check(c.shape == (rows,) and c.device.type == dev.type,
-              f"column {v}: {tuple(c.shape)} on {c.device}")
+    deepest = gfjs._launch[len(gfjs.levels) - 1][1][1][0]
+    routes = download_routes(deepest, dev)
+    del deepest
+
     rng = np.random.default_rng(1)
     starts = [0, rows // 2, max(rows - 4096, 0)] + \
         [int(x) for x in rng.integers(0, max(rows - 4096, 1), 3)]
-    for lo in starts:
-        hi = min(lo + 4096, rows)
-        win = gj.desummarize_range(gfjs, lo, hi, decode=False)
-        for v in win:
-            check(np.array_equal(codes[v][lo:hi].cpu().numpy(), win[v]),
-                  f"window [{lo},{hi}) of {v}")
-    print(f"lastfm_A2: |Q|={rows} x {len(codes)} cols, order "
+
+    def check_columns(codes, what):
+        check(list(codes) == list(gfjs.column_order), f"{what}: order")
+        for v, c in codes.items():
+            check(c.shape == (rows,) and c.device.type == dev.type,
+                  f"{what} column {v}: {tuple(c.shape)} on {c.device}")
+        for lo in starts:
+            hi = min(lo + 4096, rows)
+            win = gj.desummarize_range(gfjs, lo, hi, decode=False)
+            for v in win:
+                check(np.array_equal(codes[v][lo:hi].cpu().numpy(), win[v]),
+                      f"{what}: window [{lo},{hi}) of {v}")
+        return {v: int(c.sum(dtype=torch.int64)) for v, c in codes.items()}
+
+    first = traced_call(lambda: gj.desummarize(gfjs, decode=False), dev,
+                        tracer)
+    check_memo(gfjs, first, "lastfm_A2 desummarize after run()")
+    t_expand = first["wall"]
+    sums = check_columns(first.pop("out"), "after run()")
+    # the first columns go before the second call: the peak stays that of
+    # one set of columns beside the memo
+    host_bounds = set(gfjs._bounds)
+    again = traced_call(lambda: gj.desummarize(gfjs, decode=False), dev,
+                        tracer)
+    check_memo(gfjs, again, "lastfm_A2 second desummarize", host_bounds)
+    check(check_columns(again["out"], "again") == sums,
+          "second desummarize's column sums")
+    copy = memo_free_copy(gfjs)
+    free = traced_call(lambda: gj.desummarize(copy, decode=False), dev,
+                       tracer)
+    for v in gfjs.column_order:
+        check(torch.equal(free["out"][v], again["out"][v]),
+              f"memo-free copy {v}")
+    del again["out"], free["out"], copy
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    phases = {k: float(v) for k, v in gj.timings.items()}
+    print(f"lastfm_A2: |Q|={rows} x {len(gfjs.column_order)} cols, order "
           f"{gj.plan().order}, runs/level "
           f"{[lvl.num_runs for lvl in gfjs.levels]}")
-    print(f"  phases s: {json.dumps({k: float(v) for k, v in gj.timings.items()})}")
-    print(f"  run {t_run:.4f}s; desummarize device expansion {t_expand:.4f}s "
-          f"({rows / t_expand:.6g} rows/s); peak device bytes {peak}")
+    print(f"  phases s: {json.dumps(phases)}")
+    print(f"  run {t_run:.4f}s; summarize split: gfjs:level:* spans "
+          f"{run['level_s']:.4f}s, engine:download spans "
+          f"{run['download_s']:.4f}s ({run['download_bytes']} B), "
+          f"engine:upload {run['upload_bytes']} B, expand_many calls "
+          f"{run['expand_launches']}")
+    print(f"  after run(): aux_nbytes {aux} (the device memo), peak device "
+          f"bytes {peak_run}")
+    print("  download routes of the deepest level's codes "
+          f"({gfjs.levels[-1].num_runs} int32), s: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in routes.items()))
+    for name, c in (("desummarize after run()", first), ("again", again),
+                    ("on a memo-free copy", free)):
+        print(fmt_call(name, c) + f" ({rows / c['wall']:.6g} rows/s), "
+              f"identity levels {c['identity_levels']}")
+    print(f"  peak device bytes {peak}")
     print(f"  level spans s: {level_seconds(tracer)}")
-    print(f"  {len(starts)} windows exact against numpy desummarize_range")
+    print(f"  {len(starts)} windows of the first and second calls exact "
+          f"against numpy desummarize_range; the memo-free copy's columns "
+          f"equal the second call's (torch.equal)")
     return dict(gfjs=gfjs, rows=rows, t_run=t_run, t_expand=t_expand,
-                peak=peak,
-                phases={k: float(v) for k, v in gj.timings.items()})
+                peak=peak, peak_run=peak_run, aux_nbytes=aux, run=plain(run),
+                first=plain(first), again=plain(again), memo_free=plain(free),
+                download_routes=routes, phases=phases)
 
 
 # -- phase 6: the summary side ----------------------------------------------
@@ -677,7 +942,7 @@ def run_dense_and_api(cat, queries, a1, a2, dev, tracers) -> dict:
     gfjs = a1["gfjs"]
     gj = repro_torch.GraphicalJoin(cat, queries["lastfm_A1"], device=dev,
                                    tracer=tr)
-    gfjs._launch.clear()            # phases 4-6 filled the memo already
+    gfjs._launch.clear()            # run() filled the memo already
     first, t_first = timed(lambda: gj.desummarize(gfjs, decode=False), dev)
     entries = dict(gfjs._launch)
     check(sorted(entries) == list(range(len(gfjs.levels))),
@@ -689,10 +954,10 @@ def run_dense_and_api(cat, queries, a1, a2, dev, tracers) -> dict:
     for v in first:
         check(torch.equal(first[v], second[v]), f"second desummarize {v}")
     del second
-    print(f"  desummarize lastfm_A1: first {t_first:.4f}s (fills the memo), "
-          f"second {t_second:.4f}s (reuses {len(entries)} levels' device "
-          f"bounds, {sum(e[1][0].nbytes for e in entries.values())} B); "
-          f"equal columns")
+    print(f"  desummarize lastfm_A1 after clearing the memo: first "
+          f"{t_first:.4f}s (uploads the levels and fills the memo), second "
+          f"{t_second:.4f}s (reuses {len(entries)} levels' device codes and "
+          f"bounds, {gfjs.aux_nbytes()} B); equal columns")
 
     li = next(i for i, lv in enumerate(gfjs.levels) if "A2" in lv.vars)
     lvl, total = gfjs.levels[li], gfjs.join_size

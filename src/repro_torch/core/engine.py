@@ -42,6 +42,9 @@ its span with the reason: a visible capability check, not a hidden one.
 
 from __future__ import annotations
 
+import functools
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -88,10 +91,6 @@ def _upload(a: np.ndarray, dtype: np.dtype, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy().astype(INT)
-
-
 def _uploads(dev: torch.device, *arrays: Tuple[np.ndarray, np.dtype]
              ) -> List[torch.Tensor]:
     """Host arrays to the device, under one ``engine:upload`` span."""
@@ -101,12 +100,69 @@ def _uploads(dev: torch.device, *arrays: Tuple[np.ndarray, np.dtype]
     return out
 
 
-def _download(t: torch.Tensor) -> np.ndarray:
-    """A device result to the host, under an ``engine:download`` span
-    (which also waits for the kernels that produce it)."""
-    with _span("engine:download", cat="transfer",
-               bytes=t.numel() * t.element_size()):
-        return t.cpu().numpy()
+def _download(t: torch.Tensor, dtype: Optional[np.dtype] = None
+              ) -> np.ndarray:
+    """A device result to the host as numpy (of ``dtype`` where given),
+    under an ``engine:download`` span (which also waits for the kernels
+    that produce it).  A CUDA tensor of at least ``STAGE_BYTES`` goes
+    through :func:`_staged`; anything smaller is one pageable copy (a CPU
+    tensor: no copy unless ``dtype`` widens it)."""
+    nbytes = t.numel() * t.element_size()
+    with _span("engine:download", cat="transfer", bytes=nbytes):
+        if t.device.type == "cuda" and nbytes >= STAGE_BYTES:
+            return _staged(t.reshape(-1), dtype)
+        a = t.cpu().numpy()
+        return a if dtype is None or a.dtype == dtype else a.astype(dtype)
+
+
+# A large download goes through two pinned buffers of STAGE_BYTES: the
+# card copies one chunk while the host moves the chunk before out of the
+# other buffer (widening it where asked), split over STAGE_THREADS
+# threads.  On the H100's host that takes under half the time of one
+# pageable copy (chip_smoke.py times the routes; PERF.md §6).
+STAGE_BYTES = 1 << 25
+STAGE_THREADS = min(8, os.cpu_count() or 1)
+
+
+@functools.cache
+def _stage_pool() -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(STAGE_THREADS,
+                              thread_name_prefix="engine-download")
+
+
+def _staged(t: torch.Tensor, dtype: Optional[np.dtype]) -> np.ndarray:
+    """A 1-D CUDA tensor to a new numpy array through the staging
+    buffers.  They are bytes from torch's caching host allocator, viewed
+    as ``t``'s dtype, so every download reuses the same 2 x STAGE_BYTES of
+    pinned memory, whatever its dtype."""
+    n = t.numel()
+    out = np.empty(n, dtype or torch.empty(0, dtype=t.dtype).numpy().dtype)
+    chunk = STAGE_BYTES // t.element_size()
+    bufs = [torch.empty(STAGE_BYTES, dtype=torch.uint8,
+                        pin_memory=True).view(t.dtype) for _ in range(2)]
+    done = [torch.cuda.Event(), torch.cuda.Event()]
+    chunks = -(-n // chunk)
+    step = -(-chunk // STAGE_THREADS)
+
+    def copy_chunk(i: int) -> None:
+        lo = i * chunk
+        m = min(chunk, n - lo)
+        bufs[i % 2][:m].copy_(t[lo:lo + m], non_blocking=True)
+        done[i % 2].record()
+
+    with torch.cuda.device(t.device):
+        copy_chunk(0)
+        for i in range(chunks):
+            if i + 1 < chunks:
+                copy_chunk(i + 1)
+            done[i % 2].synchronize()
+            lo = i * chunk
+            m = min(chunk, n - lo)
+            dst, src = out[lo:lo + m], bufs[i % 2][:m].numpy()
+            list(_stage_pool().map(
+                lambda a: np.copyto(dst[a:a + step], src[a:a + step]),
+                range(0, m, step)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -313,12 +369,16 @@ def desummarize(
 ) -> Dict[str, Union[torch.Tensor, np.ndarray]]:
     """RLE-expand every level with one fused kernel launch per level.
 
-    Each level's device bounds are memoized on the GFJS
-    (``ops.gfjs_expand_meta``), so desummarizing it again uploads only the
-    codes.  ``decode=False`` keeps the codes on ``device``: an int32 tensor of
-    ``join_size`` rows per column (int64 for a level expanded on numpy).
-    ``decode=True`` copies each column to the host and decodes it through
-    the GFJS domains, returning numpy arrays of raw values.
+    Each level's launch data (int32 codes and bounds) comes from the
+    device memo on the GFJS (``ops.gfjs_launch``): generation fills it, so
+    a desummarize after ``run()`` uploads nothing and scans nothing on the
+    host; a GFJS without it uploads each level once and keeps it.  An
+    identity level (one run per row, every run of length 1) launches
+    nothing: its columns are a device copy of its codes.  ``decode=False``
+    keeps the codes on ``device``: an int32 tensor of ``join_size`` rows
+    per column (int64 for a level expanded on numpy).  ``decode=True``
+    copies each column to the host and decodes it through the GFJS
+    domains, returning numpy arrays of raw values.
     """
     dev = resolve_device(device)
     total = gfjs.join_size
@@ -329,9 +389,8 @@ def desummarize(
     for li, lvl in enumerate(gfjs.levels):
         with _span(f"desummarize:level:{li}", cat="gen", backend="torch",
                    device=True, runs=lvl.num_runs) as sp:
-            if any(lvl.key_cols[v].size
-                   and int(lvl.key_cols[v].max()) > I32_MAX
-                   for v in lvl.vars):
+            bounds, codes = ops.gfjs_launch(gfjs, li, dev)     # memoized
+            if codes is None:
                 # codes past the int32 kernel range (domains >= 2**31
                 # values): numpy-expand this level instead of wrapping
                 count_numpy_fallback(sp, "codes past int32")
@@ -340,10 +399,13 @@ def desummarize(
                     out[v] = gfjs.domains[v].decode(col) if decode \
                         else torch.from_numpy(col).to(dev)
                 continue
-            payloads = _upload(np.stack([lvl.key_cols[v] for v in lvl.vars]),
-                               np.int32, dev)
-            bounds = ops.gfjs_expand_meta(gfjs, li, dev)   # memoized
-            cols = ops.rle_expand_many(payloads, bounds, total)
+            if bounds is None:
+                # the identity level: a copy, so that a caller writing
+                # into a column cannot change the memo
+                sp.set(identity=True)
+                cols = codes.clone()
+            else:
+                cols = ops.rle_expand_many(codes, bounds, total)
             for k, v in enumerate(lvl.vars):
                 out[v] = gfjs.domains[v].decode(cols[k].cpu().numpy()) \
                     if decode else cols[k]
@@ -513,7 +575,11 @@ def generate_gfjs(
     """Device-resident Algorithms 3/4; numpy outside the int32 envelope.
 
     Level-for-level identical to :func:`repro_torch.core.gfjs.generate_gfjs`
-    (expansion is order-preserving in both engines).
+    (expansion is order-preserving in both engines).  Each level's int32
+    codes and launch metadata (``ops.level_meta``) stay on the device in
+    the returned GFJS's memo (``GFJS._launch``), so that ``desummarize``
+    uploads nothing; its host arrays are downloaded once, under
+    ``engine:download`` spans after the level's ``gfjs:level:*`` span.
     """
     dev = resolve_device(device)
     if not _torch_generable(gen):
@@ -526,6 +592,10 @@ def generate_gfjs(
     n = len(gen.root_codes)
     cols: Dict[str, torch.Tensor] = {
         gen.root: _upload(gen.root_codes, np.int32, dev)}
+    launch: Dict[int, tuple] = {}
+    ops.memoize_level(launch, 0, dev, ops.level_meta(
+        _upload(gen.root_freq, np.int64, dev), gen.join_size),
+        cols[gen.root][None])
     p_bucket = torch.ones(n, dtype=torch.int64, device=dev)
 
     runs_hist = REGISTRY.histogram("gfjs.runs_per_level", unit="runs")
@@ -535,9 +605,14 @@ def generate_gfjs(
                    device=True, depth=depth) as sp:
             cols, p_bucket, freq, new_vars, n = expand_level(
                 cols, p_bucket, level, n, dev)
-            sp.set(runs=n, vars=",".join(new_vars))
+            codes = torch.stack([cols[v] for v in new_vars])
+            bounds = ops.level_meta(freq, gen.join_size)
+            sp.set(runs=n, vars=",".join(new_vars), identity=bounds is None)
         runs_hist.observe(n)
+        ops.memoize_level(launch, depth + 1, dev, bounds, codes)
         levels_out.append(LevelSummary(
-            new_vars, {v: _host(cols[v]) for v in new_vars}, _host(freq)))
+            new_vars, {v: _download(codes[k], np.int64)
+                       for k, v in enumerate(new_vars)}, _download(freq)))
         del freq
-    return GFJS(levels_out, list(gen.column_order), gen.join_size, domains)
+    return GFJS(levels_out, list(gen.column_order), gen.join_size, domains,
+                _launch=launch)

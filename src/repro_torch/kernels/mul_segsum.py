@@ -20,6 +20,7 @@ launches, and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,6 +30,7 @@ from repro_torch.kernels.ref import mul_segsum_ref
 I32_MAX = (1 << 31) - 1
 
 
+@functools.cache
 def _bind():
     lib = build.load("mul_segsum")
     fn = lib.mul_segsum_launch
@@ -57,9 +59,12 @@ def mul_segsum(seg: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                num_segments: int) -> torch.Tensor:
     """Per-segment sums of ``x * y`` over sorted ``seg`` (int64 or float64).
 
-    Ids must lie in ``[0, num_segments)``: the kernel drops an entry
-    outside it (the plain version raises), and it does not check the
-    order, which would cost a pass over ``seg``.
+    Ids must lie in ``[0, num_segments)``.  The wrapper checks int64 ids
+    (one pass, before the kernel's int32 cast could wrap one into range):
+    an id outside raises ``ValueError`` on both devices.  An int32 id
+    outside is not checked: the kernel drops its entry (the plain version
+    raises).  The order is not checked, which would cost a pass over
+    ``seg``.
     """
     if seg.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"mul_segsum takes int32 or int64 segment ids, got "
@@ -79,6 +84,11 @@ def mul_segsum(seg: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if not 0 <= num_segments <= I32_MAX or (n and num_segments == 0):
         raise ValueError(f"num_segments {num_segments} outside [1, 2^31) "
                          f"for {n} entries")
+    if seg.dtype == torch.int64 and n:
+        lo, hi = (int(v) for v in torch.aminmax(seg))
+        if lo < 0 or hi >= num_segments:
+            raise ValueError(f"segment ids span [{lo}, {hi}], outside "
+                             f"[0, {num_segments})")
     if seg.device.type == "cpu":
         return mul_segsum_ref(seg, x, y, num_segments)
     if seg.device.type != "cuda":

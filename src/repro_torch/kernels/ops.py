@@ -11,12 +11,17 @@ the exact path.  ``dense_message`` on int32 counts is exact in int64 (the
 reference's f32 MXU product is exact only below 2^24).
 
 The launch metadata of an expansion is only the int32 bounds on the
-device: each output position finds its run by a binary search, with no
-per-tile window to precompute.  ``gfjs_expand_meta`` memoizes it per GFJS
-level, as the reference memoizes its padded bounds and tile starts.
+device: the kernel finds each 2,048-output tile's run window itself (two
+searches per tile, then a shared-memory scan), so there are no tile starts
+to precompute.  ``gfjs_launch`` memoizes a GFJS level's launch data on the
+device, its int32 codes beside its bounds, as the reference memoizes its
+padded bounds and tile starts; generation fills that memo, so a
+desummarize after ``run()`` uploads nothing.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,30 +88,98 @@ def expand_meta(bounds, device=None) -> torch.Tensor:
     return bounds.to(torch.int32).to(dev).contiguous()
 
 
-def gfjs_expand_meta(gfjs, level: int, device) -> torch.Tensor:
-    """Memoized launch metadata for expanding one GFJS level on ``device``.
-
-    Cached on ``GFJS._launch`` beside the ``_bounds`` prefix sums, so a
-    second desummarize of the same GFJS uploads no bounds.  One entry per
-    level: a different device replaces it, so the memo stays bounded and
-    ``GFJS.aux_nbytes`` counts it.
+def level_meta(freq: torch.Tensor, total: int) -> Optional[torch.Tensor]:
+    """Launch metadata of one GFJS level from its int64 run lengths, on
+    their device: ``None`` for an identity level (``runs == total`` and
+    every run of length 1, so the expansion is the codes themselves), else
+    the int32 inclusive bounds (an int64 scan, its last value checked
+    against the int32 kernel range, then cast).  One device reduction, and
+    only where ``runs == total``; one scalar read for the check.
     """
+    runs = freq.shape[0]
+    if runs == int(total) and bool(torch.all(freq == 1)):
+        return None
+    bounds = torch.cumsum(freq, 0)
+    if runs and int(bounds[-1]) > I32_MAX:
+        raise ValueError(f"bounds reach {int(bounds[-1])}, past the int32 "
+                         f"kernel range")
+    return bounds.to(torch.int32)
+
+
+def _memo_device(device) -> torch.device:
+    """The memo's key: ``cuda`` and ``cuda:<current>`` are one device."""
     dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def memoize_level(memo: dict, level: int, device,
+                  bounds: Optional[torch.Tensor],
+                  codes: Optional[torch.Tensor]) -> None:
+    """Store one level's launch data in a ``GFJS._launch`` dict."""
+    memo[level] = (_memo_device(device), (bounds, codes))
+
+
+def gfjs_launch(gfjs, level: int, device
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """One GFJS level's memoized launch data on ``device``: ``(bounds,
+    codes)``, the int32 bounds (``None`` for an identity level, see
+    :func:`level_meta`) and the int32 codes ``[K, runs]`` of the level's
+    variables (``None`` where a code passes int32: that level expands on
+    numpy).
+
+    Generation fills the memo (``engine.generate_gfjs``).  A GFJS without
+    it (loaded, made on numpy, or rebuilt from its levels) uploads the
+    level once, under an ``engine:upload`` span: the codes as int32 after
+    a host check of their range, the int64 run lengths as they are, which
+    are then scanned and cast on the device.  One entry per level, kept on
+    ``GFJS._launch``: another device replaces it, so the memo stays bounded
+    and ``GFJS.aux_nbytes`` counts it.
+    """
+    dev = _memo_device(device)
     hit = gfjs._launch.get(level)
-    if hit is None or hit[0] != dev:
-        hit = (dev, (expand_meta(gfjs.bounds(level), dev),))
-        gfjs._launch[level] = hit
-    return hit[1][0]
+    if hit is not None and hit[0] == dev:
+        return hit[1]
+    lvl = gfjs.levels[level]
+    codes = None
+    if not any(lvl.key_cols[v].size and int(lvl.key_cols[v].max()) > I32_MAX
+               for v in lvl.vars):
+        codes = np.empty((len(lvl.vars), lvl.num_runs), np.int32)
+        for k, v in enumerate(lvl.vars):
+            codes[k] = lvl.key_cols[v]
+    freq = np.ascontiguousarray(lvl.freq, np.int64)
+    with _span("engine:upload", cat="transfer",
+               bytes=freq.nbytes + (0 if codes is None else codes.nbytes)):
+        freq_t = torch.from_numpy(freq).to(dev)
+        codes_t = None if codes is None else torch.from_numpy(codes).to(dev)
+    bounds = level_meta(freq_t, gfjs.join_size)
+    del freq_t
+    memoize_level(gfjs._launch, level, dev, bounds, codes_t)
+    return bounds, codes_t
+
+
+def gfjs_expand_meta(gfjs, level: int, device) -> torch.Tensor:
+    """The int32 device bounds of one GFJS level, from its memoized launch
+    data (:func:`gfjs_launch`, which fills the memo where it is empty).
+    An identity level holds no bounds; its bounds ``1..runs`` are made
+    here and not kept."""
+    bounds, _ = gfjs_launch(gfjs, level, device)
+    if bounds is None:
+        bounds = torch.arange(1, gfjs.levels[level].num_runs + 1,
+                              dtype=torch.int32, device=_memo_device(device))
+    return bounds
 
 
 def rle_expand_many(payloads: torch.Tensor, bounds: torch.Tensor,
                     total: int) -> torch.Tensor:
     """Expand K int32 payload rows sharing one RLE: [K, runs] -> [K, total].
 
-    One fused kernel launch: the run search is done once per output
-    position and reused for all K rows (the codes of every variable of a
-    GFJS level, or the frontier columns plus the (src, CSR start, offset)
-    index columns of one generation step).
+    One fused kernel launch: each 2,048-output tile finds its run window
+    once (two searches) and every output's run by a shared-memory scan,
+    reused for all K rows (the codes of every variable of a GFJS level, or
+    the frontier columns plus the (src, CSR start, offset) index columns of
+    one generation step).
     """
     k, runs = payloads.shape
     with _launch("rle_expand_many", expanded_bytes=k * int(total) * 4,

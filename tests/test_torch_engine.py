@@ -5,11 +5,13 @@ generator) goes through both packages under one elimination order.  The
 port's ``generate_gfjs(device="cpu")`` must equal ``generate_gfjs_jax``
 (interpret mode) and the numpy ``generate_gfjs`` in vars, codes and freq,
 and the port's ``desummarize`` must equal ``desummarize_jax`` column for
-column.  Exact throughout: GJ is integer arithmetic.
+column, from the device memo that generation leaves and from a memo-free
+copy of the same GFJS.  Exact throughout: GJ is integer arithmetic.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import engine_jax
 from repro.core.api import GraphicalJoin as RefGraphicalJoin
@@ -25,6 +27,7 @@ from repro_torch.obs.metrics import REGISTRY
 from repro_torch.relational.query import JoinQuery
 
 from test_plan import SHAPES, _random_instance
+from torch_cases import memo_free
 
 
 def assert_gfjs_equal(a, b):
@@ -80,6 +83,39 @@ def test_generate_and_desummarize_match_reference(shape, seed):
     assert list(cols) == list(want)
     for v in want:
         np.testing.assert_array_equal(cols[v].numpy(), np.asarray(want[v]))
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_generated_memo_and_memo_free_copy_match_reference(shape, seed):
+    """Generation leaves each level's int32 codes (equal to key_cols) and
+    bounds (None only for an identity level) on the device; a memo-free
+    copy uploads them and desummarizes equal to desummarize_jax."""
+    cat, query = _random_instance(shape, seed)
+    ref, ref_gfjs, port = both_generators(cat, query, SHAPES[shape])
+    got = engine.generate_gfjs(port.generator, port.enc.domains,
+                               device="cpu")
+    assert sorted(got._launch) == list(range(len(got.levels)))
+    for li, lvl in enumerate(got.levels):
+        dev, (bounds, codes) = got._launch[li]
+        assert dev == torch.device("cpu")
+        assert codes.shape == (len(lvl.vars), lvl.num_runs)
+        for k, v in enumerate(lvl.vars):
+            np.testing.assert_array_equal(codes[k].numpy(), lvl.key_cols[v])
+        identity = lvl.num_runs == got.join_size and bool(np.all(
+            lvl.freq == 1))
+        assert (bounds is None) == identity
+        if bounds is not None:
+            np.testing.assert_array_equal(bounds.numpy(), np.cumsum(lvl.freq))
+    copy = memo_free(got)
+    cols = engine.desummarize(copy, decode=False, device="cpu")
+    assert sorted(copy._launch) == sorted(got._launch)
+    assert copy.aux_nbytes() == got.aux_nbytes()
+    want = engine_jax.desummarize_jax(ref_gfjs, decode=False, interpret=True)
+    memoized = engine.desummarize(got, decode=False, device="cpu")
+    for v in want:
+        np.testing.assert_array_equal(cols[v].numpy(), np.asarray(want[v]))
+        assert torch.equal(cols[v], memoized[v])
 
 
 @pytest.mark.parametrize("seed", [3, 5])

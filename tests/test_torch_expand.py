@@ -5,7 +5,9 @@ version the wrapper runs there) against the reference's
 ``ops.rle_expand_many(..., interpret=True)`` and ``np.repeat``; the
 single-payload ``rle_expand`` and ``expand_indices`` against the
 reference's ``expand.expand_gather`` and ``ops.expand_indices``; the
-memoized launch metadata of ``desummarize``.  GJ is integer arithmetic:
+device memo of a GFJS level's launch data that ``run()`` fills and
+``desummarize`` reads (no upload, no host prefix sums), the upload path
+of a GFJS without it, and the identity level.  GJ is integer arithmetic:
 every comparison is exact (float payloads bit for bit).
 """
 
@@ -14,7 +16,8 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-from repro.core import engine_jax  # noqa: F401  (flips jax_enable_x64 on)
+from repro.core import engine_jax  # also flips jax_enable_x64 on
+from repro.core.gfjs import GFJS as RefGFJS, LevelSummary as RefLevel
 from repro.kernels import ops as jax_ops
 from repro.kernels.expand import expand_gather as jax_expand_gather
 
@@ -26,10 +29,12 @@ from repro_torch.kernels.expand_gather import expand_gather
 from repro_torch.kernels.expand_many import expand_many
 from repro_torch.kernels.ref import expand_gather_ref, expand_many_ref
 from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import Tracer
 from repro_torch.relational.synth import lastfm_like
 
-from torch_cases import (bounds_of, expand_cases, gather_cases,
-                         repeat_oracle)
+from torch_cases import (bounds_of, expand_cases, gather_cases, level_gfjs,
+                         memo_free, repeat_oracle, spans_bytes,
+                         zero_run_identity_gfjs)
 
 CASES = expand_cases()
 GATHER = gather_cases()
@@ -182,27 +187,166 @@ def test_expand_meta_takes_arrays_and_tensors():
         ops.expand_meta(np.asarray([1, 1 << 31]), "cpu")
 
 
-def test_desummarize_twice_reuses_the_memoized_bounds():
-    """One _launch entry per level, made by the first call and reused by
-    the second; equal columns, equal to the numpy path."""
+def _a1_small():
     cat, queries = lastfm_like(n_users=150, n_artists=120,
                                artists_per_user=5, friends_per_user=3)
-    gj = repro_torch.GraphicalJoin(cat, queries["lastfm_A1"], device="cpu")
-    gfjs = gj.run()
-    assert not gfjs._launch
-    first = engine.desummarize(gfjs, device="cpu")
+    tr = Tracer()
+    gj = repro_torch.GraphicalJoin(cat, queries["lastfm_A1"], device="cpu",
+                                   tracer=tr)
+    return gj, gj.run(), tr
+
+
+def _memo_nbytes(gfjs):
+    return sum((0 if b is None else b.nbytes) + c.nbytes
+               for _, (b, c) in gfjs._launch.values())
+
+
+def test_desummarize_twice_reuses_the_memoized_bounds():
+    """run() fills one _launch entry per level, both desummarize calls
+    reuse it untouched, and aux_nbytes counts it exactly; equal columns,
+    equal to the numpy path."""
+    gj, gfjs, _ = _a1_small()
     entries = dict(gfjs._launch)
     assert sorted(entries) == list(range(len(gfjs.levels)))
     assert all(e[0] == torch.device("cpu") for e in entries.values())
+    assert gfjs.aux_nbytes() == _memo_nbytes(gfjs) > 0
+    first = engine.desummarize(gfjs, device="cpu")
     second = engine.desummarize(gfjs, device="cpu")
+    assert gfjs._launch == entries
     assert all(gfjs._launch[lv] is e for lv, e in entries.items())
+    assert not gfjs._bounds
     want = np_desummarize(gfjs, decode=False)
     for v in gfjs.column_order:
         assert torch.equal(first[v], second[v])
         np.testing.assert_array_equal(first[v].numpy(), np.asarray(want[v]))
-    assert gfjs.aux_nbytes() == sum(
-        gfjs.bounds(lv).nbytes + e[1][0].nbytes for lv, e in entries.items())
-    # one entry per level: another device replaces it
-    ops.gfjs_expand_meta(gfjs, 0, "meta")
-    assert gfjs._launch[0][0] == torch.device("meta")
+    assert gfjs.aux_nbytes() == _memo_nbytes(gfjs) + sum(
+        b.nbytes for b in gfjs._bounds.values())
+    # one entry per level: an entry of another device is replaced
+    gfjs._launch[0] = (torch.device("meta"), gfjs._launch[0][1])
+    bounds = ops.gfjs_expand_meta(gfjs, 0, "cpu")
+    assert gfjs._launch[0][0] == torch.device("cpu")
+    assert gfjs._launch[0][1][0] is bounds
+    np.testing.assert_array_equal(bounds.numpy(), np.cumsum(
+        gfjs.levels[0].freq))
     assert len(gfjs._launch) == len(gfjs.levels)
+
+
+def test_desummarize_after_run_uploads_nothing():
+    """No engine:upload span, no host prefix sums: the launch data is the
+    memo that run() left on the device."""
+    gj, gfjs, tr = _a1_small()
+    since = len(tr.spans)
+    cols = gj.desummarize(gfjs, decode=False)
+    assert spans_bytes(tr, "engine:upload", since) == (0, 0)
+    assert not gfjs._bounds
+    assert len(cols) == gfjs.num_columns
+    # run() downloaded each generated level once: one span per int32 code
+    # column (widened on the host) and one for the int64 run lengths
+    n, nbytes = spans_bytes(tr, "engine:download")
+    deep = gfjs.levels[1:]
+    assert n == sum(len(lvl.vars) + 1 for lvl in deep)
+    assert nbytes == sum(lvl.num_runs * (4 * len(lvl.vars) + 8)
+                         for lvl in deep)
+
+
+def test_memoized_codes_equal_the_levels():
+    gj, gfjs, _ = _a1_small()
+    for li, lvl in enumerate(gfjs.levels):
+        bounds, codes = gfjs._launch[li][1]
+        assert codes.dtype == torch.int32
+        assert codes.shape == (len(lvl.vars), lvl.num_runs)
+        for k, v in enumerate(lvl.vars):
+            np.testing.assert_array_equal(codes[k].numpy(), lvl.key_cols[v])
+        if bounds is None:
+            assert lvl.num_runs == gfjs.join_size
+            assert np.all(lvl.freq == 1)
+        else:
+            np.testing.assert_array_equal(bounds.numpy(),
+                                          np.cumsum(lvl.freq))
+
+
+def test_memo_free_copy_matches_memoized_numpy_and_reference():
+    """A GFJS rebuilt from its levels uploads each level once, then
+    desummarizes equal to the memoized path, to numpy and to the
+    reference's desummarize_jax (interpret mode)."""
+    gj, gfjs, tr = _a1_small()
+    memoized = gj.desummarize(gfjs, decode=False)
+    copy = memo_free(gfjs)
+    assert not copy._launch
+    since = len(tr.spans)
+    got = gj.desummarize(copy, decode=False)
+    n, nbytes = spans_bytes(tr, "engine:upload", since)
+    assert n == len(copy.levels)
+    assert nbytes == sum(lvl.num_runs * (4 * len(lvl.vars) + 8)
+                         for lvl in copy.levels)
+    assert not copy._bounds
+    assert copy.aux_nbytes() == gfjs.aux_nbytes()
+    since = len(tr.spans)
+    again = gj.desummarize(copy, decode=False)
+    assert spans_bytes(tr, "engine:upload", since) == (0, 0)
+    ref = RefGFJS([RefLevel(lvl.vars, lvl.key_cols, lvl.freq)
+                   for lvl in gfjs.levels], list(gfjs.column_order),
+                  gfjs.join_size, {})
+    want = engine_jax.desummarize_jax(ref, decode=False, interpret=True)
+    numpy_cols = np_desummarize(gfjs, decode=False)
+    for v in gfjs.column_order:
+        assert torch.equal(got[v], memoized[v])
+        assert torch.equal(again[v], memoized[v])
+        np.testing.assert_array_equal(got[v].numpy(), numpy_cols[v])
+        np.testing.assert_array_equal(got[v].numpy(), np.asarray(want[v]))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_memo_free_level_uploads_once_and_matches_repeat(name):
+    payloads, freqs = CASES[name]
+    gfjs = level_gfjs(payloads, freqs)
+    tr = Tracer()
+    with tr.span("case"):
+        first = engine.desummarize(gfjs, device="cpu")
+        n_up = len(tr.find("engine:upload"))
+        second = engine.desummarize(gfjs, device="cpu")
+    assert n_up == 1 and len(tr.find("engine:upload")) == 1
+    assert not gfjs._bounds
+    want = repeat_oracle(payloads, freqs)
+    for k, v in enumerate(gfjs.column_order):
+        np.testing.assert_array_equal(first[v].numpy(), want[k])
+        assert torch.equal(first[v], second[v])
+
+
+def test_identity_level_launches_nothing_and_is_a_copy():
+    """Every freq 1 and num_runs == join_size: the columns are a copy of
+    the memoized codes, with no bounds held and no launch."""
+    gj, gfjs, _ = _a1_small()
+    last = len(gfjs.levels) - 1
+    bounds, codes = gfjs._launch[last][1]
+    assert bounds is None and gfjs.levels[last].num_runs == gfjs.join_size
+    calls = REGISTRY.counter("kernels.launches").value
+    cols = engine.desummarize(gfjs, device="cpu")
+    assert REGISTRY.counter("kernels.launches").value == calls + last
+    v = gfjs.levels[last].vars[0]
+    assert cols[v].untyped_storage().data_ptr() != \
+        codes.untyped_storage().data_ptr()
+    want = cols[v].clone()
+    cols[v].fill_(-1)
+    again = engine.desummarize(gfjs, device="cpu")
+    assert torch.equal(again[v], want)
+    np.testing.assert_array_equal(codes[0].numpy(),
+                                  gfjs.levels[last].key_cols[v])
+    # kernel-API bounds of an identity level are made, not held
+    np.testing.assert_array_equal(
+        ops.gfjs_expand_meta(gfjs, last, "cpu").numpy(),
+        np.arange(1, gfjs.join_size + 1))
+    assert gfjs._launch[last][1][0] is None
+
+
+def test_zero_length_run_level_is_not_an_identity():
+    """num_runs == join_size with a zero-length run: the level goes
+    through the kernel and equals np.repeat."""
+    gfjs = zero_run_identity_gfjs()
+    calls = REGISTRY.counter("kernels.launches").value
+    cols = engine.desummarize(gfjs, device="cpu")
+    assert REGISTRY.counter("kernels.launches").value == calls + 2
+    assert all(e[1][0] is not None for e in gfjs._launch.values())
+    np.testing.assert_array_equal(cols["B"].numpy(), np.repeat(
+        gfjs.levels[1].key_cols["B"], gfjs.levels[1].freq))
+    np.testing.assert_array_equal(cols["A"].numpy(), [0, 0, 1])

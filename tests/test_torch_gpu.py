@@ -18,6 +18,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import engine
+from repro_torch.core.gfjs import desummarize as np_desummarize
 from repro_torch.core.potentials import Factor
 from repro_torch.kernels import ops
 from repro_torch.kernels.dense_message import (THIN_K, THIN_MAX_K,
@@ -29,13 +30,15 @@ from repro_torch.kernels.ref import (dense_message_ref, expand_gather_ref,
                                      expand_many_ref, mul_segsum_ref,
                                      run_boundaries_ref)
 from repro_torch.kernels.run_boundaries import run_boundaries
+from repro_torch.obs.trace import Tracer
 from repro_torch.relational.synth import figure1, lastfm_like
 from repro_torch.summary.algebra import SummaryFrame
 
 from torch_cases import (boundaries_cases, bounds_of, dense_cases,
                          dense_oracle, dense_tensors, expand_cases,
-                         gather_cases, numpy_message, repeat_oracle,
-                         segsum_cases)
+                         gather_cases, level_gfjs, memo_free, numpy_message,
+                         repeat_oracle, segsum_cases, spans_bytes,
+                         zero_run_identity_gfjs)
 
 pytestmark = pytest.mark.gpu
 
@@ -324,16 +327,24 @@ def test_maybe_dense_message_on_the_card_equals_the_cpu():
     np.testing.assert_array_equal(got, numpy_message(phi, "U2", msg))
 
 
-def test_desummarize_twice_on_the_card_reuses_the_bounds():
-    dev = _card()
+def _a1_on_card(dev):
     cat, qs = lastfm_like(n_users=300, n_artists=400, artists_per_user=8,
                           friends_per_user=4)
-    gj = repro_torch.GraphicalJoin(cat, qs["lastfm_A1"], device=dev)
-    g = gj.run()
-    first = gj.desummarize(g, decode=False)
+    tr = Tracer()
+    gj = repro_torch.GraphicalJoin(cat, qs["lastfm_A1"], device=dev,
+                                   tracer=tr)
+    return gj, gj.run(), tr
+
+
+def test_desummarize_twice_on_the_card_reuses_the_bounds():
+    dev = _card()
+    gj, g, _ = _a1_on_card(dev)
     entries = dict(g._launch)
     assert len(entries) == len(g.levels)
-    assert all(e[1][0].device.type == "cuda" for e in entries.values())
+    assert all(e[1][1].device.type == "cuda" and (
+        e[1][0] is None or e[1][0].device.type == "cuda")
+        for e in entries.values())
+    first = gj.desummarize(g, decode=False)
     second = gj.desummarize(g, decode=False)
     assert all(g._launch[lv] is e for lv, e in entries.items())
     for v in first:
@@ -346,3 +357,115 @@ def test_desummarize_twice_on_the_card_reuses_the_bounds():
                          meta=ops.gfjs_expand_meta(g, lvl, dev))
     assert expand_gather.launches == launches + 1
     assert torch.equal(col, first["A2"])
+
+
+def test_desummarize_after_run_on_the_card_uploads_nothing():
+    dev = _card()
+    gj, g, tr = _a1_on_card(dev)
+    for li, lvl in enumerate(g.levels):
+        _, codes = g._launch[li][1]
+        for k, v in enumerate(lvl.vars):
+            np.testing.assert_array_equal(codes[k].cpu().numpy(),
+                                          lvl.key_cols[v])
+    since = len(tr.spans)
+    launches = expand_many.launches
+    cols = gj.desummarize(g, decode=False)
+    torch.cuda.synchronize()
+    assert spans_bytes(tr, "engine:upload", since) == (0, 0)
+    assert not g._bounds
+    identity = sum(e[1][0] is None for e in g._launch.values())
+    assert identity == 1
+    assert expand_many.launches == launches + len(g.levels) - identity
+    want = np_desummarize(g, decode=False)
+    for v in g.column_order:
+        np.testing.assert_array_equal(cols[v].cpu().numpy(), want[v])
+
+
+def test_memo_free_copy_on_the_card_equals_the_memoized_path():
+    dev = _card()
+    gj, g, tr = _a1_on_card(dev)
+    memoized = gj.desummarize(g, decode=False)
+    copy = memo_free(g)
+    since = len(tr.spans)
+    got = gj.desummarize(copy, decode=False)
+    assert spans_bytes(tr, "engine:upload", since)[0] == len(g.levels)
+    assert not copy._bounds and copy.aux_nbytes() == g.aux_nbytes()
+    since = len(tr.spans)
+    again = gj.desummarize(copy, decode=False)
+    assert spans_bytes(tr, "engine:upload", since) == (0, 0)
+    for v in g.column_order:
+        assert torch.equal(got[v], memoized[v])
+        assert torch.equal(again[v], memoized[v])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_memo_free_level_on_the_card_matches_repeat(name):
+    dev = _card()
+    payloads, freqs = CASES[name]
+    g = level_gfjs(payloads, freqs)
+    first = engine.desummarize(g, device=dev)
+    second = engine.desummarize(g, device=dev)
+    want = repeat_oracle(payloads, freqs)
+    for k, v in enumerate(g.column_order):
+        np.testing.assert_array_equal(first[v].cpu().numpy(), want[k])
+        assert torch.equal(first[v], second[v])
+
+
+def test_identity_level_on_the_card_is_a_copy():
+    dev = _card()
+    gj, g, _ = _a1_on_card(dev)
+    last = len(g.levels) - 1
+    bounds, codes = g._launch[last][1]
+    assert bounds is None
+    v = g.levels[last].vars[0]
+    cols = gj.desummarize(g, decode=False)
+    want = cols[v].clone()
+    assert cols[v].data_ptr() != codes.data_ptr()
+    cols[v].fill_(-1)
+    again = gj.desummarize(g, decode=False)
+    assert torch.equal(again[v], want)
+    np.testing.assert_array_equal(again[v].cpu().numpy(),
+                                  g.levels[last].key_cols[v])
+
+
+@pytest.mark.parametrize("chunks", [-1, 0, 2, 5])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_staged_download_equals_a_pageable_copy(chunks, dtype):
+    """Below STAGE_BYTES one pageable copy, from it on the pinned staging
+    buffers (whole chunks and a ragged tail); int32 widens to int64 on the
+    host, int64 stays."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    chunk = engine.STAGE_BYTES // dt.itemsize
+    n = {-1: chunk - 1, 0: chunk}.get(chunks, chunks * chunk + 5)
+    t = torch.randint(-(1 << 30), 1 << 30, (n,), device=dev, dtype=dt)
+    got = engine._download(t, np.int64)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, t.cpu().numpy())
+    same = engine._download(t)
+    assert same.dtype == t.cpu().numpy().dtype
+    np.testing.assert_array_equal(same, t.cpu().numpy())
+
+
+def test_zero_length_run_level_on_the_card_goes_through_the_kernel():
+    dev = _card()
+    g = zero_run_identity_gfjs()
+    launches = expand_many.launches
+    cols = engine.desummarize(g, device=dev)
+    torch.cuda.synchronize()
+    assert expand_many.launches == launches + 2
+    assert cols["B"].cpu().tolist() == [5, 5, 7]
+
+
+def test_mul_segsum_on_the_card_rejects_int64_ids_past_int32():
+    """2^32 + 3 would wrap onto segment 3 in the kernel's int32 ids."""
+    dev = _card()
+    seg = torch.tensor([0, 1, 2, (1 << 32) + 3], dtype=torch.int64,
+                       device=dev)
+    x = torch.ones(4, dtype=torch.int64, device=dev)
+    launches = mul_segsum.launches
+    with pytest.raises(ValueError, match="outside"):
+        mul_segsum(seg, x, x, 4)
+    assert mul_segsum.launches == launches
+    ok = mul_segsum(seg.clamp(max=3), x, x, 4)
+    assert ok.tolist() == [1, 1, 1, 1]

@@ -70,9 +70,14 @@ def test_pipeline_matches_reference(name):
     for v in want:
         np.testing.assert_array_equal(cols[v], want[v])
     # one expansion per psi while generating, one per level desummarizing
+    # but an identity level (one run per row, every run of length 1),
+    # whose columns are a copy of its codes
     n_psis = sum(len(level) for level in gj.generator.levels)
+    identity = sum(lvl.num_runs == gfjs.join_size and bool(np.all(
+        lvl.freq == 1)) for lvl in gfjs.levels)
+    assert identity == sum(e[1][0] is None for e in gfjs._launch.values())
     assert REGISTRY.counter("kernels.launches").value == \
-        launches + n_psis + len(gfjs.levels)
+        launches + n_psis + len(gfjs.levels) - identity
     names = {s.name for s in tracer.spans}
     assert {"phase:summarize", "phase:desummarize",
             "kernel:rle_expand_many"} <= names

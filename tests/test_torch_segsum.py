@@ -115,6 +115,28 @@ def test_mul_segsum_rejects_bad_inputs(bad):
         mul_segsum(seg, x, y, s)
 
 
+@pytest.mark.parametrize("bad_id", [(1 << 32) + 3, -1, 3, 1 << 31])
+def test_mul_segsum_rejects_int64_ids_out_of_range(bad_id):
+    """An int64 id outside [0, num_segments) raises ValueError, before the
+    kernel's int32 cast could wrap 2^32 + 3 onto segment 3."""
+    seg = torch.tensor([0, 1, 2, bad_id], dtype=torch.int64)
+    if bad_id < 0:
+        seg = seg.sort().values
+    x = y = torch.ones(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="outside"):
+        mul_segsum(seg, x, y, 3)
+    with pytest.raises(ValueError, match="outside"):
+        ops.mul_segsum(seg, x, y, 3)
+
+
+def test_mul_segsum_takes_int64_ids_in_range():
+    seg = torch.tensor([0, 0, 2, 2], dtype=torch.int64)
+    x = torch.tensor([1, 2, 3, 4], dtype=torch.int64)
+    got = mul_segsum(seg, x, x, 3)
+    assert got.tolist() == [5, 0, 25]
+    assert torch.equal(got, mul_segsum(seg.int(), x, x, 3))
+
+
 def test_mul_segsum_empty_input():
     e = torch.zeros(0, dtype=torch.int32)
     out = mul_segsum(e, e.long(), e.long(), 3)

@@ -10,6 +10,7 @@ are made with numpy from fixed seeds.
 import numpy as np
 import torch
 
+from repro_torch.core.gfjs import GFJS, LevelSummary
 from repro_torch.kernels.dense_message import THIN_K
 
 EXPAND_TILE = 2048   # expand_many.cu's outputs per block (kTile)
@@ -86,6 +87,39 @@ def bounds_of(freqs):
 
 def repeat_oracle(payloads, freqs):
     return np.stack([np.repeat(p, freqs) for p in payloads])
+
+
+def memo_free(gfjs):
+    """The same summary rebuilt from its levels: no device memo."""
+    return GFJS(gfjs.levels, gfjs.column_order, gfjs.join_size,
+                gfjs.domains)
+
+
+def level_gfjs(payloads, freqs):
+    """A one-level GFJS of an expansion case: variable ``v<k>`` holds row
+    k of ``payloads`` (int64 codes, as a LevelSummary holds them)."""
+    names = tuple(f"v{k}" for k in range(payloads.shape[0]))
+    lvl = LevelSummary(names, {v: payloads[k].astype(np.int64)
+                               for k, v in enumerate(names)},
+                       np.asarray(freqs, np.int64))
+    return GFJS([lvl], list(names), int(np.sum(freqs)), {})
+
+
+def zero_run_identity_gfjs():
+    """Two levels whose second has ``num_runs == join_size`` but holds a
+    zero-length run: not an identity level, so it goes through the
+    kernel."""
+    return GFJS([LevelSummary(("A",), {"A": np.asarray([0, 1])},
+                              np.asarray([2, 1])),
+                 LevelSummary(("B",), {"B": np.asarray([5, 6, 7])},
+                              np.asarray([2, 0, 1]))], ["A", "B"], 3, {})
+
+
+def spans_bytes(tracer, name, since=0):
+    """(count, bytes) of the ``name`` spans recorded after the first
+    ``since`` spans."""
+    spans = [s for s in tracer.spans[since:] if s.name == name]
+    return len(spans), sum(s.args.get("bytes", 0) for s in spans)
 
 
 TILE = 2048          # mul_segsum.cu's entries per tile
