@@ -54,23 +54,45 @@ Phases, each fatal on failure (exit code 1, no result line):
    host's launch cost), cold (rotating over copies of phi that overflow
    L2) beside warm, and swept over K, thin kernel against tiled; each
    redesigned kernel's time under its previous design beside its new one;
-9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+9. the serving path on the card, at the same scale, under one tracer:
+   (a) ``JoinServer(JoinService(device="cuda", incremental=True))``:
+   lastfm_A1 raced cold by 8 threads (one traced build on numpy, 7
+   ``"collapsed"`` replies), then ``"memory"``; COUNT, SUM, MEAN, GROUP BY
+   and a filtered GROUP BY through the service, each held against the
+   same frame on ``device="cpu"`` and split into host, transfer and card
+   time; batched ``lookup`` of all user ids from 8 threads against
+   ``lookup_rows``; a 1 % append to ``user_friends`` (ids past the
+   domain), after which the frame is ``"refreshed"`` and equal, level for
+   level and in its aggregates and columns, to a cold rebuild on the card.
+   (b) ``JoinService(device="cuda", incremental=False)`` with a 1 GiB
+   budget: lastfm_A1 under two plans (the second evicts the first to disk;
+   once no reply holds it, the card's allocated bytes fall by its memo;
+   it comes back from ``"disk"`` with the same answers), lastfm_A2 built
+   on the card, warm, COUNT and GROUP BY against ``device="cpu"``, rebuilt
+   after ``cache.clear()`` with message-cache hits and an identical GFJS,
+   and ``invalidate`` freeing its memo.  The trace passes
+   ``obs.check.validate(expect_server=True, expect_msgcache=True)``;
+10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
 phase 5 (``expand_many``: the main path), zeroed again just before phase 6
 and read just after it (``mul_segsum``, ``run_boundaries``: the summary
-path), and again around phase 7's path (``expand_gather``,
-``dense_message``).  ``--out`` writes the per-shape measurements as JSON.
+path), again around phase 7's path (``expand_gather``,
+``dense_message``), and around phase 9 (``expand_many``, ``mul_segsum``,
+``run_boundaries``: the serving path).  ``--out`` writes the per-shape
+measurements as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -735,8 +757,8 @@ def device_seconds(fn, dev):
     return kern / 1e6, copy / 1e6, ours
 
 
-def split_aggregate(gj, args, kw, gfjs, dev, tracers):
-    """One aggregate on the card: (result, seconds split).  ``upload`` and
+def split_call(fn, dev, tracers):
+    """One call on the card: (result, seconds split).  ``upload`` and
     ``download`` sum the engine's transfer spans (a download also waits
     for the kernels before it); ``host`` is the rest of the wall time;
     ``kernels`` / ``copies`` are the card's own busy times in a second,
@@ -748,15 +770,20 @@ def split_aggregate(gj, args, kw, gfjs, dev, tracers):
 
     def call():
         with tr.span("aggregate"):
-            return gj.aggregate(*args, gfjs=gfjs, **kw)
+            return fn()
     out, wall = timed(call, dev)
     up = sum(sp.seconds for sp in tr.find("engine:upload"))
     down = sum(sp.seconds for sp in tr.find("engine:download"))
-    kern, copy, ours = device_seconds(
-        lambda: gj.aggregate(*args, gfjs=gfjs, **kw), dev)
+    kern, copy, ours = device_seconds(fn, dev)
     return out, dict(wall=wall, upload=up, download=down,
                      host=wall - up - down, kernels=kern, copies=copy,
                      our_launches=ours)
+
+
+def split_aggregate(gj, args, kw, gfjs, dev, tracers):
+    """``gj.aggregate`` on the card, split as :func:`split_call`."""
+    return split_call(lambda: gj.aggregate(*args, gfjs=gfjs, **kw), dev,
+                      tracers)
 
 
 def fmt_split(t: dict) -> str:
@@ -1429,6 +1456,393 @@ def kernel_row(name, rows, launches, err, source, replaces) -> dict:
         library_ms=None if None in lib else sum(lib))
 
 
+# -- phase 9: the serving path ------------------------------------------------
+
+# lastfm_A1's retained incremental state holds the elimination trace, a
+# second GFJS and the expansion indices (~2 x 38.3M int64): the default
+# 512 MB would drop it, and the refresh would turn into a cold rebuild
+SERVICE_STATE_BYTES = 8 << 30
+SERVICE_BUDGET = 1 << 30           # service (b): one lastfm_A1 entry fits
+RACERS = 8
+
+
+def gate(svc):
+    """Hold ``svc.frame`` (an instance attribute shadowing the method)
+    until released: (calls, entered, release)."""
+    orig = svc.frame
+    calls, entered, release = [], threading.Event(), threading.Event()
+
+    def gated(query, plan=None):
+        calls.append(query.name)
+        entered.set()
+        check(release.wait(600.0), "the gated build was never released")
+        return orig(query, plan=plan)
+    svc.frame = gated
+    return calls, entered, release
+
+
+def in_threads(fn, n: int) -> list:
+    """``fn(i)`` for i < n on n threads at once; the results in order."""
+    out, errors = [None] * n, []
+
+    def run(i):
+        try:
+            out[i] = fn(i)
+        except Exception as exc:     # reported by the check below
+            errors.append(exc)
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    check(not errors, f"threads failed: {errors!r}")
+    return out
+
+
+def freed_bytes(dev, drop) -> int:
+    """Device bytes that ``drop()`` hands back to the allocator."""
+    gc.collect()
+    sync(dev)
+    held = torch.cuda.memory_allocated(dev)
+    drop()
+    gc.collect()
+    sync(dev)
+    return held - torch.cuda.memory_allocated(dev)
+
+
+def levels_equal(a, b) -> bool:
+    """Two summaries equal level for level: vars, codes and freq."""
+    return (a.join_size == b.join_size
+            and list(a.column_order) == list(b.column_order)
+            and len(a.levels) == len(b.levels)
+            and all(la.vars == lb.vars and np.array_equal(la.freq, lb.freq)
+                    and all(np.array_equal(la.key_cols[v], lb.key_cols[v])
+                            for v in la.vars)
+                    for la, lb in zip(a.levels, b.levels)))
+
+
+def service_answers(svc, frame_of, specs, dev, out, tracers, what):
+    """Each (name, service call, frame call) through the service, split
+    (host, transfers, card), held against the same frame on the CPU."""
+    for name, ask, want_of in specs:
+        got, t = split_call(lambda: ask(svc), dev, tracers)
+        want, t_cpu = timed(lambda: want_of(frame_of), dev)
+        same(got, want, f"{what} {name}")
+        t["cpu_wall"] = t_cpu
+        out[name] = t
+        print(f"  {what} {name}: {fmt_split(t)}; device='cpu' "
+              f"{t_cpu:.4f}s; equal")
+
+
+def run_service_a(lastfm_kw, dev, tracer, spill, out, tracers) -> None:
+    """Service (a): incremental, behind a JoinServer."""
+    import repro_torch
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.relational.synth import lastfm_like
+    from repro_torch.serve import JoinServer
+    from repro_torch.serve.server import lookup_rows
+    from repro_torch.summary import JoinService
+    from repro_torch.summary.algebra import SummaryFrame
+    cat, qs = lastfm_like(**lastfm_kw)
+    a1 = qs["lastfm_A1"]
+    svc = JoinService(cat, device=dev, incremental=True, spill_dir=spill,
+                      max_state_bytes=SERVICE_STATE_BYTES)
+    server = JoinServer(svc, tracer=tracer)
+    requests = out.setdefault("requests", [])
+
+    def note(name, reply):
+        t = reply.timings
+        requests.append(dict(service="a", request=name, source=reply.source,
+                             seconds=t["service"], server=t["server"]))
+        print(f"  (a) {name}: {reply.source} in {t['service']:.4f}s "
+              f"(service), {t['server']:.4f}s (server)")
+        return reply
+
+    print(f"service (a): JoinServer(JoinService(device={str(dev)!r}, "
+          f"incremental=True, max_state_bytes={SERVICE_STATE_BYTES}))")
+    # the racers: the leader's build waits until the others are parked
+    calls, entered, release = gate(svc)
+
+    def racer(i):
+        if i:
+            check(entered.wait(600.0), "no racer reached the service")
+        return server.frame(a1)
+
+    def watch():
+        check(entered.wait(600.0), "no racer reached the service")
+        end = time.monotonic() + 600.0
+        while sum(fl.waiters for fl in
+                  server._flights._flights.values()) < RACERS - 1:
+            check(time.monotonic() < end, "the racers never parked")
+            time.sleep(0.001)
+        release.set()
+    both = in_threads(lambda i: watch() if i == RACERS else racer(i),
+                      RACERS + 1)
+    del svc.frame
+    replies = both[:RACERS]
+    sources = sorted(r.source for r in replies)
+    check(calls == [a1.name], f"{len(calls)} service builds for "
+          f"{RACERS} racers")
+    check(sources == ["collapsed"] * (RACERS - 1) + ["computed"],
+          f"racer sources {sources}")
+    lead = next(r for r in replies if r.source == "computed")
+    note(f"lastfm_A1 cold, leader of {RACERS} racers", lead)
+    waits = [r.timings["server"] for r in replies if r is not lead]
+    print(f"  (a) {RACERS - 1} collapsed replies waited {min(waits):.4f}"
+          f"-{max(waits):.4f}s")
+    backends = {sp.args.get("backend")
+                for sp in tracer.find("phase:summarize")}
+    check(backends == {"numpy"}, f"traced build summarized on {backends}")
+    print(f"  (a) phase:summarize backend={backends.pop()} (traced build: "
+          f"numpy generation with its expansion indices); build phases s: "
+          + ", ".join(f"{k} {lead.timings[k]:.4f}" for k in
+                      ("build_model", "plan", "build_generator",
+                       "summarize")))
+    out["racers"] = dict(builds=len(calls), sources=sources,
+                         leader=lead.timings["service"], waits=waits)
+    again = note("lastfm_A1 again", server.frame(a1))
+    check(again.source == "memory", f"warm lastfm_A1 came from "
+          f"{again.source}")
+    frame = again.frame
+    cpu = SummaryFrame.of(frame.gfjs, "cpu")
+    per_user = cpu.group_by(["U1"], count="count")
+    top = per_user["U1"][int(np.argmax(per_user["count"]))]
+    where = {"U1": top}
+    aggs = out.setdefault("aggregates_a", {})
+    service_answers(svc, cpu, [
+        ("count", lambda s: s.count(a1), lambda f: f.count()),
+        ("sum U2", lambda s: s.sum(a1, "U2"), lambda f: f.sum("U2")),
+        ("mean U2", lambda s: s.mean(a1, "U2"), lambda f: f.mean("U2")),
+        ("count by A1", lambda s: s.group_by(a1, "A1", count="count"),
+         lambda f: f.group_by("A1", count="count")),
+        (f"count by A2 where U1={top}",
+         lambda s: s.group_by(a1, "A2", where=where, count="count"),
+         lambda f: f.filter(where).group_by("A2", count="count"))],
+        dev, aggs, tracers, "(a) lastfm_A1")
+
+    users = np.arange(lastfm_kw["n_users"])
+    parts = np.array_split(users, RACERS)
+    rows, t_lookup = timed(lambda: in_threads(
+        lambda i: server.lookup(a1, "U1", parts[i], {"n": "count"}),
+        RACERS), dev)
+    table = frame.group_by(["U1"], n="count")
+    for keys, got in zip(parts, rows):
+        check(np.array_equal(got, lookup_rows(table, "U1", ["n"], keys)),
+              "lookup rows vs lookup_rows over the frame's group_by")
+    st = server.stats()
+    out["lookup"] = dict(keys=len(users), seconds=t_lookup,
+                         probes=st["probes"], batched=st["batched"],
+                         table_recomputes=st["table_recomputes"])
+    print(f"  (a) lookup: COUNT per user for all {len(users)} user ids from "
+          f"{RACERS} threads in {t_lookup:.4f}s ({st['probes']} vectorized "
+          f"lookups, {st['batched']} batched, {st['table_recomputes']} "
+          f"table build); equal to lookup_rows over the frame's group_by")
+
+    uf = cat["user_friends"]
+    n = round(uf.num_rows / 100)
+    hi = lastfm_kw["n_users"] + -(-lastfm_kw["n_users"] // 100)
+    rng = np.random.default_rng(lastfm_kw["seed"] + 1)
+    u, f = rng.integers(0, hi, n), rng.integers(0, hi, n)
+    u[0] = hi - 1                    # at least one new user: U1 grows
+    f = np.where(f == u, (f + 1) % hi, f)
+    u_size = frame.gfjs.domains["U1"].size
+    svc.append("user_friends", {"userID": u, "friendID": f})
+    r = note(f"lastfm_A1 after appending {n} user_friends rows (ids < "
+             f"{hi})", server.frame(a1))
+    check(r.source == "refreshed", f"lastfm_A1 after the append came from "
+          f"{r.source}")
+    state_bytes = [s.nbytes() for s in svc._states.values()]
+    print(f"  (a) refresh {r.timings['refresh']:.4f}s ("
+          + ", ".join(f"{k[8:]} {v:g}" for k, v in r.timings.items()
+                      if k.startswith("refresh_")) + f"); retained state "
+          f"bytes {state_bytes}; U1 domain {u_size} -> "
+          f"{r.frame.gfjs.domains['U1'].size}")
+    check(r.frame.gfjs.domains["U1"].size > u_size, "no domain grew")
+    gj = repro_torch.GraphicalJoin(cat, a1, plan=r.plan, device=dev)
+    rebuild, t_rebuild = timed(gj.run, dev)
+    check(levels_equal(r.frame.gfjs, rebuild),
+          "the refreshed GFJS vs a cold rebuild on the card")
+    card = SummaryFrame.of(rebuild, dev)
+    for name, fn in (("count", lambda x: x.count()),
+                     ("sum U2", lambda x: x.sum("U2")),
+                     ("count by A1", lambda x: x.group_by("A1",
+                                                          count="count"))):
+        same(fn(r.frame), fn(card), f"refreshed {name}")
+    up = Tracer()
+    with up.span("desummarize"):
+        got, t_memo_free = timed(
+            lambda: gj.desummarize(r.frame.gfjs, decode=False), dev)
+    want = gj.desummarize(rebuild, decode=False)
+    check(all(torch.equal(got[v], want[v]) for v in want),
+          "desummarize of the refreshed GFJS vs the rebuild's")
+    ups = up.find("engine:upload")
+    out["refresh"] = dict(
+        rows=n, seconds=r.timings["refresh"], service=r.timings["service"],
+        report={k: v for k, v in r.timings.items()
+                if k.startswith("refresh_")},
+        state_bytes=state_bytes, rebuild_seconds=t_rebuild,
+        desummarize_seconds=t_memo_free,
+        upload_bytes=sum(s.args.get("bytes", 0) for s in ups))
+    print(f"  (a) refreshed GFJS equal level for level to a cold rebuild "
+          f"on the card ({t_rebuild:.4f}s), COUNT / SUM / GROUP BY equal; "
+          f"its desummarize on the card {t_memo_free:.4f}s uploads "
+          f"{out['refresh']['upload_bytes']} B in {len(ups)} spans, equal "
+          f"to the rebuild's columns")
+    del got, want
+    out["stats_a"] = svc.stats()
+    print(f"  (a) stats {out['stats_a']}")
+
+
+def run_service_b(lastfm_kw, dev, tracer, spill, out, tracers) -> None:
+    """Service (b): untraced builds on the card, a 1 GiB budget."""
+    import repro_torch
+    from repro_torch.relational.synth import lastfm_like
+    from repro_torch.summary import JoinService
+    from repro_torch.summary.algebra import SummaryFrame
+    cat, qs = lastfm_like(**lastfm_kw)
+    a1, a2 = qs["lastfm_A1"], qs["lastfm_A2"]
+    svc = JoinService(cat, device=dev, incremental=False,
+                      byte_budget=SERVICE_BUDGET, spill_dir=spill)
+    requests = out.setdefault("requests", [])
+
+    def ask(name, q, plan=None):
+        with tracer.span("smoke:request", request=name):
+            reply = svc.frame(q, plan=plan)
+        requests.append(dict(service="b", request=name, source=reply.source,
+                             seconds=reply.timings["service"]))
+        print(f"  (b) {name}: {reply.source} in "
+              f"{reply.timings['service']:.4f}s")
+        return reply
+
+    def answers(frame):
+        return [frame.count(), frame.sum("A2"),
+                frame.group_by("U1", count="count")]
+
+    print(f"service (b): JoinService(device={str(dev)!r}, incremental=False,"
+          f" byte_budget={SERVICE_BUDGET})")
+    r1 = ask("lastfm_A1, cost plan", a1)
+    check(r1.source == "computed" and bool(r1.frame.gfjs._launch),
+          "lastfm_A1 was not built on the card")
+    aux1 = r1.frame.gfjs.aux_nbytes()
+    want1 = answers(r1.frame)
+    swap = {"A1": "A2", "A2": "A1", "U1": "U2", "U2": "U1"}
+    forced = repro_torch.GraphicalJoin(
+        cat, a1, elimination_order=[swap[v] for v in r1.plan.order],
+        device=dev).plan()
+    check(forced.signature() != r1.plan.signature(), "one plan twice")
+    r2 = ask(f"lastfm_A1, forced order {list(forced.order)}", a1, forced)
+    st = svc.stats()
+    check(r2.source == "computed" and st["evictions"] == 1
+          and st["spills"] == 1, f"the second plan did not evict the first "
+          f"to disk: {st}")
+    path = Path(spill) / f"{r1.key}.gfjs"
+    check(path.exists(), "no spill file for the evicted entry")
+    spills = tracer.find("cache:spill")
+    holder = [r1]
+    del r1
+    fell = freed_bytes(dev, holder.clear)
+    check(fell >= aux1, f"dropping the evicted entry's last reply freed "
+          f"{fell} B of its {aux1} B memo")
+    out["eviction"] = dict(aux_nbytes=aux1, freed=fell,
+                           spill_bytes=path.stat().st_size,
+                           spill_seconds=spills[-1].seconds)
+    print(f"  (b) evicted lastfm_A1 (cost plan): spill {path.stat().st_size}"
+          f" B in {spills[-1].seconds:.4f}s; once no reply held it, "
+          f"memory_allocated fell {fell} B (its memo: aux_nbytes {aux1})")
+    r3 = ask("lastfm_A1, cost plan again", a1)
+    check(r3.source == "disk", f"the evicted entry came from {r3.source}")
+    check(not r3.frame.gfjs._launch, "a loaded GFJS holds a memo")
+    for name, got, want in zip(("count", "sum A2", "count by U1"),
+                               answers(r3.frame), want1):
+        same(got, want, f"lastfm_A1 from disk: {name}")
+    print("  (b) answers from the disk copy equal the first build's")
+    del r2, r3
+
+    r4 = ask("lastfm_A2", a2)
+    check(r4.source == "computed" and bool(r4.frame.gfjs._launch),
+          "lastfm_A2 was not built on the card")
+    r5 = ask("lastfm_A2 again", a2)
+    check(r5.source == "memory", f"warm lastfm_A2 came from {r5.source}")
+    first = r4.frame.gfjs
+    aux2 = first.aux_nbytes()
+    cpu2 = SummaryFrame.of(first, "cpu")
+    aggs = out.setdefault("aggregates_b", {})
+    service_answers(svc, cpu2, [
+        ("count", lambda s: s.count(a2), lambda f: f.count()),
+        ("count by A2", lambda s: s.group_by(a2, "A2", count="count"),
+         lambda f: f.group_by("A2", count="count"))],
+        dev, aggs, tracers, "(b) lastfm_A2")
+    del r4, r5, cpu2
+    print(f"  (b) lastfm_A2 resident: resident_nbytes "
+          f"{first.resident_nbytes()}, aux_nbytes {aux2}")
+    before = svc.stats()
+    probes = len(tracer.find("msg"))
+    svc.cache.clear()
+    r6 = ask("lastfm_A2 after cache.clear()", a2)
+    check(r6.source == "computed", f"the rebuild came from {r6.source}")
+    after = svc.stats()
+    hits = {k: after[k] - before[k] for k in
+            ("msgcache_hits", "msgcache_disk_hits", "msgcache_misses")}
+    msg = tracer.find("msg")[probes:]
+    hit_spans = sum(bool(s.args.get("hit")) for s in msg)
+    check(hits["msgcache_hits"] + hits["msgcache_disk_hits"] > 0
+          and hit_spans > 0, f"the rebuild reused no message: {hits}")
+    check(levels_equal(r6.frame.gfjs, first),
+          "the rebuild's GFJS vs the first lastfm_A2 build")
+    del first
+    out["msgcache"] = dict(hits, hit_spans=hit_spans, probes=len(msg),
+                           rebuild=r6.timings["service"])
+    print(f"  (b) rebuild: message cache {hits}, {hit_spans} of {len(msg)} "
+          f"msg: spans hits; GFJS identical to the first build")
+    aux2 = r6.frame.gfjs.aux_nbytes()
+    holder = [r6]
+    del r6
+    holder.clear()
+    fell = freed_bytes(dev, lambda: svc.invalidate("user_friends"))
+    check(fell >= aux2, f"invalidate freed {fell} B of lastfm_A2's {aux2} "
+          f"B memo")
+    out["invalidate"] = dict(aux_nbytes=aux2, freed=fell)
+    print(f"  (b) invalidate('user_friends'): memory_allocated fell {fell} B"
+          f" (lastfm_A2's memo: aux_nbytes {aux2})")
+    out["stats_b"] = svc.stats()
+    out["spill_dir_bytes"] = sum(p.stat().st_size
+                                 for p in Path(spill).rglob("*")
+                                 if p.is_file())
+    print(f"  (b) stats {out['stats_b']}; spill directory "
+          f"{out['spill_dir_bytes']} B")
+
+
+def run_service(lastfm_kw, dev) -> dict:
+    """Phase 9: the serving path on the card, under one tracer."""
+    import tempfile
+    from repro_torch.obs import check as trace_check
+    from repro_torch.obs.trace import Tracer
+    out: dict = {}
+    tracers: list = []
+    tracer = Tracer()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_service_a(lastfm_kw, dev, tracer, str(Path(tmp) / "a"), out,
+                      tracers)
+        run_service_b(lastfm_kw, dev, tracer, str(Path(tmp) / "b"), out,
+                      tracers)
+    doc = tracer.to_chrome_trace()
+    errs = trace_check.validate(doc, expect_server=True,
+                                expect_msgcache=True)
+    check(not errs, f"the service trace: {errs}")
+    out["trace_spans"] = len(doc["traceEvents"])
+    out["seconds"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(f"  the trace ({out['trace_spans']} events) passes "
+          f"obs.check.validate(expect_server=True, expect_msgcache=True); "
+          f"phase {out['seconds']:.1f}s, peak device bytes "
+          f"{out.get('peak_device_bytes')}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the per-shape measurements "
@@ -1459,7 +1873,7 @@ def main() -> int:
 
 
 def smoke(dev, lastfm_kw, out_path, header) -> list:
-    """Phases 3-7 on ``dev``; returns the kernels line's entries.  (The
+    """Phases 3-9 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
     from repro_torch.kernels.dense_message import dense_message
@@ -1590,6 +2004,22 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
           "kernel against tiled:")
     k_sweep = dense_k_sweep(dev, 103)
 
+    a1.pop("gfjs")              # the serving phase builds its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    expand_many.launches = mul_segsum.launches = 0
+    run_boundaries.launches = 0
+    fb3 = fallbacks.value
+    service = run_service(lastfm_kw, dev)
+    service["launches"] = {"expand_many": expand_many.launches,
+                           "mul_segsum": mul_segsum.launches,
+                           "run_boundaries": run_boundaries.launches}
+    for name, n in service["launches"].items():
+        check(n > 0, f"the serving path launched no {name} kernel")
+    check(fallbacks.value == fb3, "numpy fallbacks on the serving path")
+    print(f"serving path: launches {service['launches']}, numpy "
+          f"fallbacks=0")
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -1600,6 +2030,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             summary_launches=summary_launches, dense=dense,
             message_shapes=message_rows, message_launches=message_launches,
             thin_launches=thin_launches, k_sweep=k_sweep, rates=rates,
+            service=service,
             previous_ms={"/".join(map(str, k)): v
                          for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(

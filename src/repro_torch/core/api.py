@@ -6,11 +6,14 @@
     result = gj.desummarize(gfjs)                 # O(|Q|), on the device
     n = gj.aggregate("count", by=["A"], gfjs=gfjs)  # O(runs), from the GFJS
     gj.store(gfjs, "q.gfjs"); gfjs = GraphicalJoin.load("q.gfjs")
+    state = gj.capture_state(gfjs)                # with record_trace=True
+    state = gj.refresh(state, catalog.append("t", rows))
 
 Same surface as ``repro.core.api.GraphicalJoin`` for the monolithic path,
-the summary algebra and storage; ``device`` names where the device phases
-and the aggregates' reductions run (``"cpu"`` runs the plain PyTorch
-versions of the kernels, and ``"cuda"`` without a card raises).
+incremental refresh, the message cache, the summary algebra and storage;
+``device`` names where the device phases and the aggregates' reductions
+run (``"cpu"`` runs the plain PyTorch versions of the kernels, and
+``"cuda"`` without a card raises).
 """
 
 from __future__ import annotations
@@ -36,15 +39,25 @@ class GraphicalJoin:
 
     ``elimination_order`` forces an order (bypassing the search);
     ``planner`` selects the search mode ("cost" or "min_fill"); ``plan``
-    injects a pre-compiled :class:`PhysicalPlan`; ``generation_backend``
+    injects a pre-compiled :class:`PhysicalPlan` (the ``JoinService``
+    serve path); ``record_trace`` keeps the elimination trace and the
+    expansion indices so ``capture_state`` / ``refresh`` can maintain the
+    summary on base-table appends (``summary/incremental.py``; a traced
+    build generates on numpy, as in the reference); ``generation_backend``
     pins GFJS generation to "numpy" (the dynamic-shape oracle) or "torch"
     (the device-resident frontier, the default); ``hybrid`` controls
     hypertree-decomposed GJ/WCOJ execution on cyclic queries;
-    ``corrections`` seeds the cost model with calibration ratios;
-    ``tracer`` / ``metrics`` plug a :class:`repro_torch.obs.trace.Tracer` /
+    ``message_cache`` plugs a
+    :class:`repro_torch.summary.msgcache.MessageCache` into planning
+    (residency pricing) and elimination (cached messages are injected;
+    traced and bagged builds bypass it); ``corrections`` seeds the cost
+    model with calibration ratios; ``tracer`` / ``metrics`` plug a
+    :class:`repro_torch.obs.trace.Tracer` /
     :class:`repro_torch.obs.metrics.MetricsRegistry` into every phase.
-    ``partitions`` > 1 and ``message_cache`` are not ported yet and raise
-    :class:`NotImplementedError` when the plan is built.
+    ``partitions`` > 1 is not ported yet and raises
+    :class:`NotImplementedError` when the plan is built;
+    ``partition_fold`` and ``shard_executor`` are accepted as in the
+    reference and refused there for a monolithic plan.
     """
 
     def __init__(
@@ -56,8 +69,11 @@ class GraphicalJoin:
         early_projection: bool = True,
         planner: str = "cost",
         plan: Optional[PhysicalPlan] = None,
+        record_trace: bool = False,
         generation_backend: Optional[str] = None,
         partitions: Optional[int] = None,
+        partition_fold: Optional[int] = None,
+        shard_executor: Optional[str] = None,
         hybrid: Optional[bool] = None,
         tracer=None,
         metrics=None,
@@ -73,8 +89,11 @@ class GraphicalJoin:
             early_projection=early_projection,
             planner=planner,
             plan=plan,
+            record_trace=record_trace,
             generation_backend=generation_backend,
             partitions=partitions,
+            partition_fold=partition_fold,
+            shard_executor=shard_executor,
             hybrid=hybrid,
             tracer=tracer,
             metrics=metrics,
@@ -154,6 +173,24 @@ class GraphicalJoin:
     def run(self) -> GFJS:
         """build_model -> plan -> build_generator -> summarize."""
         return self.summarize()
+
+    # -- incremental maintenance ------------------------------------------
+    def capture_state(self, gfjs: GFJS, versions=None):
+        """Snapshot for later delta refreshes (requires record_trace=True)."""
+        return self._executor.capture_state(gfjs, versions=versions)
+
+    def refresh(self, state, deltas):
+        """Apply table appends to a captured state (the ``refresh`` phase).
+
+            gj = GraphicalJoin(cat, query, record_trace=True, device="cpu")
+            gfjs = gj.run(); state = gj.capture_state(gfjs)
+            delta = cat.append("user_friends", rows)
+            state = gj.refresh(state, delta)     # state.gfjs is the new summary
+
+        Only the appended block is encoded and only the dirty elimination
+        steps re-run; ``timings["refresh"]`` holds the wall time.
+        """
+        return self._executor.refresh(state, deltas)
 
     def explain(self, *, analyze: bool = False) -> str:
         """Render the plan, annotated with any timings measured so far."""

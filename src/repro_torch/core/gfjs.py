@@ -58,10 +58,12 @@ class GFJS:
     join_size: int
     domains: Dict[str, Domain]
     _bounds: Dict[int, np.ndarray] = field(default_factory=dict, repr=False)
-    # kernel launch metadata memoized alongside the prefix sums: level ->
-    # (device, (int32 bounds on that device,)) — one entry per level (another
-    # device replaces it), filled lazily by
-    # repro_torch.kernels.ops.gfjs_expand_meta (this module stays torch-free)
+    # the level's launch data on the device: level -> (device, (bounds or
+    # None, codes [K, runs])), int32 tensors; None bounds mark an identity
+    # level (one run per row), None codes a level whose codes pass int32.
+    # One entry per level (another device replaces it), filled by
+    # repro_torch.core.engine.generate_gfjs or lazily by
+    # repro_torch.kernels.ops.gfjs_launch (this module stays torch-free)
     _launch: Dict[int, tuple] = field(default_factory=dict, repr=False)
 
     @property

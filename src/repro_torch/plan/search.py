@@ -206,11 +206,7 @@ def plan_query(enc: EncodedQuery, *,
     if partitions > 1:
         raise NotImplementedError(
             "partitions > 1 is not ported yet (ROADMAP.md queue 1: "
-            "partitioned builds and the message cache)")
-    if message_cache is not None:
-        raise NotImplementedError(
-            "message_cache is not ported yet (ROADMAP.md queue 1: "
-            "partitioned builds and the message cache)")
+            "partitioned builds)")
     if partitions == 1 and partition_var is not None:
         raise ValueError(
             f"partition_var={partition_var!r} requires partitions > 1 "

@@ -27,19 +27,7 @@ from repro_torch.obs.metrics import REGISTRY
 from repro_torch.relational.query import JoinQuery
 
 from test_plan import SHAPES, _random_instance
-from torch_cases import memo_free
-
-
-def assert_gfjs_equal(a, b):
-    """Level for level: vars, codes and freq (a and b from either package)."""
-    assert a.join_size == b.join_size
-    assert list(a.column_order) == list(b.column_order)
-    assert len(a.levels) == len(b.levels)
-    for la, lb in zip(a.levels, b.levels):
-        assert tuple(la.vars) == tuple(lb.vars)
-        np.testing.assert_array_equal(la.freq, lb.freq)
-        for v in la.vars:
-            np.testing.assert_array_equal(la.key_cols[v], lb.key_cols[v])
+from torch_cases import assert_gfjs_equal, memo_free
 
 
 def port_twin(cat, query, spec, output=None):

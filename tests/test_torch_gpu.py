@@ -34,7 +34,8 @@ from repro_torch.obs.trace import Tracer
 from repro_torch.relational.synth import figure1, lastfm_like
 from repro_torch.summary.algebra import SummaryFrame
 
-from torch_cases import (boundaries_cases, bounds_of, dense_cases,
+from torch_cases import (assert_gfjs_equal, boundaries_cases, bounds_of,
+                         dense_cases,
                          dense_oracle, dense_tensors, expand_cases,
                          gather_cases, level_gfjs, memo_free, numpy_message,
                          repeat_oracle, segsum_cases, spans_bytes,
@@ -469,3 +470,200 @@ def test_mul_segsum_on_the_card_rejects_int64_ids_past_int32():
     assert mul_segsum.launches == launches
     ok = mul_segsum(seg.clamp(max=3), x, x, 4)
     assert ok.tolist() == [1, 1, 1, 1]
+
+
+# -- the serving path on the card ---------------------------------------------
+
+SERVE_LASTFM = dict(n_users=300, n_artists=400, artists_per_user=8,
+                    friends_per_user=4, seed=0)
+
+
+def _answers(svc, q):
+    small = {"U2": lambda u: u < 100}
+    return [svc.count(q), svc.count(q, where=small), svc.sum(q, "A2"),
+            svc.mean(q, "A2"), svc.min(q, "A1"), svc.max(q, "U1"),
+            svc.distinct(q, "A1"),
+            svc.group_by(q, "U1", n="count", total=("sum", "A2")),
+            svc.group_by(q, ["U1", "U2"], where=small, m=("mean", "A1"))]
+
+
+def _assert_same(a, b):
+    if isinstance(a, dict):
+        assert list(a) == list(b)
+        for k in a:
+            _assert_same(a[k], b[k])
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind == "f":
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=0)
+    else:
+        np.testing.assert_array_equal(a, b)
+
+
+def _memo_bytes(gfjs):
+    return sum(int(t.nbytes) for _, meta in gfjs._launch.values()
+               for t in meta if t is not None)
+
+
+@pytest.mark.parametrize("incremental", [True, False])
+def test_service_on_the_card_answers_as_on_the_cpu(incremental):
+    from repro_torch.relational.table import Catalog
+    from repro_torch.summary import JoinService
+    dev = _card()
+    cat, qs = lastfm_like(**SERVE_LASTFM)
+    q = qs["lastfm_A1"]
+    card = JoinService(cat, incremental=incremental, device="cuda")
+    # its own catalog: an append upgrades the catalog it is given
+    host = JoinService(Catalog(dict(cat.tables)), incremental=incremental,
+                       device="cpu")
+    first = card.frame(q)
+    assert first.source == "computed" and first.frame.device.type == "cuda"
+    # traced builds generate on numpy; untraced ones on the card
+    assert bool(first.frame.gfjs._launch) == (not incremental)
+    counts = (mul_segsum.launches, run_boundaries.launches)
+    for a, b in zip(_answers(card, q), _answers(host, q)):
+        _assert_same(a, b)
+    assert mul_segsum.launches > counts[0]
+    assert card.frame(q).source == "memory"
+    rows = {"userID": np.asarray([0, 5, 301], np.int64),
+            "friendID": np.asarray([301, 7, 2], np.int64)}
+    card.append("user_friends", dict(rows))
+    host.append("user_friends", dict(rows))
+    want = "refreshed" if incremental else "computed"
+    assert card.frame(q).source == host.frame(q).source == want
+    for a, b in zip(_answers(card, q), _answers(host, q)):
+        _assert_same(a, b)
+    torch.cuda.synchronize(dev)
+
+
+def test_card_built_entry_charges_its_memo():
+    from repro_torch.summary import JoinService
+    dev = _card()
+    cat, qs = lastfm_like(**SERVE_LASTFM)
+    svc = JoinService(cat, incremental=False, device="cuda")
+    gfjs = svc.frame(qs["lastfm_A1"]).frame.gfjs
+    memo = _memo_bytes(gfjs)
+    assert memo > 0
+    assert all(d == torch.device("cuda", torch.cuda.current_device())
+               for d, _ in gfjs._launch.values())
+    assert all(t.device.type == dev.type for _, meta in gfjs._launch.values()
+               for t in meta if t is not None)
+    assert gfjs.aux_nbytes() >= memo
+    assert gfjs.resident_nbytes() == gfjs.nbytes() + gfjs.aux_nbytes()
+    assert svc.cache.resident_bytes == gfjs.resident_nbytes()
+
+
+def test_eviction_invalidate_and_clear_free_the_memo_on_the_card(tmp_path):
+    """Once an evicted entry's spill is written and no reply holds it, and
+    after ``invalidate`` or ``clear``, the card's allocated bytes fall by
+    at least the entry's memo."""
+    import gc
+    from repro_torch.summary import JoinService
+    dev = _card()
+    cat, qs = lastfm_like(**SERVE_LASTFM)
+    a1, b = qs["lastfm_A1"], qs["lastfm_B"]
+    svc = JoinService(cat, incremental=False, byte_budget=1024,
+                      spill_dir=str(tmp_path), device="cuda")
+
+    def freed(drop):
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        drop()
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        return held - torch.cuda.memory_allocated(dev)
+
+    reply = svc.frame(a1)
+    aux = reply.frame.gfjs.aux_nbytes()
+    other = svc.frame(b)                    # evicts A1; its spill is written
+    assert svc.stats()["evictions"] == svc.stats()["spills"] == 1
+    holder = [reply]
+    del reply
+    assert aux > 0 and freed(holder.clear) >= aux
+    aux = other.frame.gfjs.aux_nbytes()
+    del other
+    assert aux > 0 and freed(lambda: svc.invalidate("user_friends")) >= aux
+    assert svc.frame(a1).source == "computed"    # its spill went too
+    svc.cache.clear()
+    reply = svc.frame(b)
+    aux = reply.frame.gfjs.aux_nbytes()
+    del reply
+    assert aux > 0 and freed(svc.cache.clear) >= aux
+
+
+def test_threads_aggregating_one_cached_gfjs_match_serial():
+    import threading
+    from repro_torch.summary import JoinService
+    from repro_torch.summary.algebra import SummaryFrame
+    dev = _card()
+    cat, qs = lastfm_like(**SERVE_LASTFM)
+    q = qs["lastfm_A1"]
+    svc = JoinService(cat, incremental=False, device="cuda")
+    gfjs = svc.frame(q).frame.gfjs
+    want = _answers(svc, q)
+    host = [SummaryFrame.of(gfjs, "cpu").count()]
+    outs, errors = [None] * 8, []
+
+    def worker(i):
+        try:
+            outs[i] = _answers(svc, q)
+            # lazily grown prefix sums and a desummarize on the memo, from
+            # every thread at once
+            cols = engine.desummarize(gfjs, decode=False, device=dev)
+            outs[i].append(int(cols["A1"].shape[0]))
+        except Exception as e:  # pragma: no cover - reported below
+            errors.append(e)
+
+    ts = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    assert not errors, errors
+    for out in outs:
+        for a, b in zip(out, want):
+            _assert_same(a, b)
+        assert out[-1] == gfjs.join_size == host[0]
+
+
+def test_leaders_of_two_cold_keys_race_through_the_staged_download(
+        monkeypatch):
+    """Two server leaders of different cold keys generate at once; a small
+    STAGE_BYTES sends every level through the pinned staging buffers, so
+    both downloads interleave on the shared pool.  Both summaries equal
+    the numpy generation's, every time."""
+    import threading
+    from repro_torch.serve import JoinServer
+    from repro_torch.summary import JoinService
+    dev = _card()
+    monkeypatch.setattr(engine, "STAGE_BYTES", 1 << 12)
+    cat, qs = lastfm_like(**SERVE_LASTFM)
+    names = ("lastfm_A1", "lastfm_B")
+    want = {n: repro_torch.GraphicalJoin(cat, qs[n], device="cpu",
+                                         generation_backend="numpy").run()
+            for n in names}
+    for _ in range(3):
+        server = JoinServer(JoinService(cat, incremental=False,
+                                        message_reuse=False, device="cuda"))
+        barrier = threading.Barrier(2)
+        got, errors = {}, []
+
+        def lead(name):
+            try:
+                barrier.wait()
+                got[name] = server.frame(qs[name])
+            except Exception as e:  # pragma: no cover - reported below
+                errors.append(e)
+
+        ts = [threading.Thread(target=lead, args=(n,)) for n in names]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        assert not errors, errors
+        for n in names:
+            assert got[n].source == "computed"
+            assert got[n].frame.gfjs._launch
+            assert_gfjs_equal(got[n].frame.gfjs, want[n])
+    torch.cuda.synchronize(dev)

@@ -2,9 +2,11 @@
 
 A child process with ``jax`` and ``repro`` blocked imports ``repro_torch``
 and runs Figure 1 on the CPU, desummarizes it and aggregates from it, then
-calls ``ops.dense_message`` and ``ops.rle_expand``; a source scan finds no jax or ``repro``
-import under ``src/repro_torch/`` or in ``chip_smoke.py``; and a ``cuda``
-entry point without a card raises instead of running on the CPU.
+calls ``ops.dense_message`` and ``ops.rle_expand``, and answers a COUNT
+through a ``JoinServer`` in front of a ``JoinService``; a source scan
+finds no jax or ``repro`` import under ``src/repro_torch/`` (the serving
+modules included) or in ``chip_smoke.py``; and a ``cuda`` entry point
+without a card raises instead of running on the CPU.
 """
 
 import os
@@ -21,6 +23,7 @@ import repro_torch
 from repro_torch.core import engine
 from repro_torch.core.potentials import Factor
 from repro_torch.relational.synth import figure1
+from repro_torch.summary import JoinService
 from repro_torch.summary.algebra import SummaryFrame
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,10 +45,14 @@ msg = ops.dense_message(torch.ones((2, 3), dtype=torch.int32),
                         torch.full((3, 1), 7, dtype=torch.int32))
 col = ops.rle_expand(torch.tensor([4, 5], dtype=torch.int32),
                      torch.tensor([2, 3], dtype=torch.int32), 3)
+from repro_torch.serve import JoinServer
+from repro_torch.summary import JoinService
+server = JoinServer(JoinService(cat, device="cpu"))
+n = server.frame(q).frame.count()
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print(len(rows["A"]), by_a["A"].tolist(), by_a["count"].tolist(),
-      msg[:, 0].tolist(), col.tolist())
+      msg[:, 0].tolist(), col.tolist(), n)
 """
 
 
@@ -54,7 +61,7 @@ def test_port_runs_with_jax_and_reference_blocked():
     res = subprocess.run([sys.executable, "-c", CHILD], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "32 ['a3'] [32] [21, 21] [4, 4, 5]"
+    assert res.stdout.strip() == "32 ['a3'] [32] [21, 21] [4, 4, 5] 32"
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:[.\s]|$)", re.M)
@@ -64,6 +71,11 @@ def test_source_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT / "src" / "repro_torch"))
+             for f in files[:-1]}
+    assert {"obs/check.py", "summary/cache.py", "summary/incremental.py",
+            "summary/msgcache.py", "summary/service.py",
+            "serve/server.py", "serve/__init__.py"} <= names
     bad = {str(f.relative_to(ROOT)): _IMPORT.findall(f.read_text())
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -72,7 +84,7 @@ def test_source_imports_neither_jax_nor_reference():
 @pytest.mark.parametrize("entry", ["facade", "generate", "desummarize",
                                    "build_factor", "segment_weighted_sum",
                                    "group_runs_device", "summary_frame",
-                                   "maybe_dense_message"])
+                                   "maybe_dense_message", "join_service"])
 def test_cuda_without_a_card_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cat, q = figure1()
@@ -95,6 +107,7 @@ def test_cuda_without_a_card_raises(monkeypatch, entry):
         "maybe_dense_message": lambda: engine.maybe_dense_message(
             Factor(("P", "V"), np.zeros((1, 2), np.int64), ones[:1],
                    ones[:1], (1, 1)), "V", ones[:1]),
+        "join_service": lambda: JoinService(cat),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

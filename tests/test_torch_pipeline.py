@@ -125,8 +125,20 @@ def test_gfjs_from_arrays_round_trips_reference_summary():
 
 @pytest.mark.parametrize("knob", ["partitions", "message_cache"])
 def test_unported_knobs_refuse(knob):
+    """``partitions > 1`` still refuses, naming ROADMAP's queue; the
+    message cache, which refused the same way until the serving slice, is
+    ported and now runs (its parity tests: tests/test_torch_msgcache.py)."""
+    from repro_torch.summary.msgcache import MessageCache
     (_, _), (cat, q) = INSTANCES["figure1"]
-    kw = {"partitions": 2} if knob == "partitions" else {"message_cache": {}}
-    gj = repro_torch.GraphicalJoin(cat, q, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gj.run()
+    if knob == "partitions":
+        gj = repro_torch.GraphicalJoin(cat, q, device="cpu", partitions=2)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            gj.run()
+        return
+    mc = MessageCache()
+    cold = repro_torch.GraphicalJoin(cat, q, device="cpu").run()
+    for _ in range(2):
+        warm = repro_torch.GraphicalJoin(cat, q, device="cpu",
+                                         message_cache=mc).run()
+        assert_gfjs_equal(warm, cold)
+    assert mc.stats.hits > 0

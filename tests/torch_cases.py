@@ -122,6 +122,33 @@ def spans_bytes(tracer, name, since=0):
     return len(spans), sum(s.args.get("bytes", 0) for s in spans)
 
 
+def port_catalog(cat):
+    """The port's catalog over a reference catalog's arrays."""
+    from repro_torch.interop import catalog_from_arrays
+    return catalog_from_arrays({n: dict(t.columns)
+                                for n, t in cat.tables.items()})
+
+
+def port_query(query):
+    """The port's twin of a reference query: same name, occurrences and
+    output."""
+    from repro_torch.relational.query import JoinQuery, QueryTable
+    return JoinQuery(query.name,
+                     tuple(QueryTable(qt.table, tuple(qt.var_map))
+                           for qt in query.tables), query.output)
+
+
+def assert_gfjs_equal(a, b):
+    """Level for level: vars, codes and freq (a and b from either package)."""
+    assert a.join_size == b.join_size
+    assert list(a.column_order) == list(b.column_order)
+    assert len(a.levels) == len(b.levels)
+    for la, lb in zip(a.levels, b.levels):
+        assert tuple(la.vars) == tuple(lb.vars)
+        np.testing.assert_array_equal(la.freq, lb.freq)
+        for v in la.vars:
+            np.testing.assert_array_equal(la.key_cols[v], lb.key_cols[v])
+
 TILE = 2048          # mul_segsum.cu's entries per tile
 I32 = np.iinfo(np.int32)
 
