@@ -72,14 +72,32 @@ Phases, each fatal on failure (exit code 1, no result line):
    after ``cache.clear()`` with message-cache hits and an identical GFJS,
    and ``invalidate`` freeing its memo.  The trace passes
    ``obs.check.validate(expect_server=True, expect_msgcache=True)``;
-10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+10. partitioned builds on the card, at the same scale, under one tracer:
+   (a) lastfm_A1 with ``partitions=4`` (thread executor): each shard equal
+   level for level to the same shards generated on numpy, the shard join
+   sizes summing to phase 4's, the desummarized rows equal to phase 4's
+   as a multiset (packed into one int64 key and sorted on the card),
+   COUNT, SUM, MEAN, GROUP BY A1 and the filtered GROUP BY through
+   ``ShardedSummaryFrame`` equal to phase 6's monolithic answers, and
+   ``partition_histogram`` on the card equal to ``np.bincount`` of the
+   numpy hash; (b) lastfm_A2 with ``partitions=4``: the join size, COUNT
+   and GROUP BY A2 against phases 5-6, and each shard's column windows
+   against numpy ``desummarize_range``; (c) lastfm_A1 with 2 shards
+   generated on numpy in spawned workers (``shard_executor="process"``),
+   equal to the thread executor's; (d) ``JoinService(partitions=4)``:
+   computed, memory, answers equal (a)'s, an append rebuilds, and
+   ``invalidate`` frees the shards' memos.  Each prints its shard report,
+   ``aux_nbytes`` and peak device bytes; the trace passes
+   ``obs.check.validate(expect_shards=True)``;
+11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
 phase 5 (``expand_many``: the main path), zeroed again just before phase 6
 and read just after it (``mul_segsum``, ``run_boundaries``: the summary
 path), again around phase 7's path (``expand_gather``,
-``dense_message``), and around phase 9 (``expand_many``, ``mul_segsum``,
-``run_boundaries``: the serving path).  ``--out`` writes the per-shape
+``dense_message``), around phase 9 (``expand_many``, ``mul_segsum``,
+``run_boundaries``: the serving path) and around phase 10 (the same
+three: the partitioned path).  ``--out`` writes the per-shape
 measurements as JSON.
 """
 
@@ -795,8 +813,10 @@ def fmt_split(t: dict) -> str:
             f"card: {dev}")
 
 
-def run_summary(cat, queries, a1, a2, dev, tracers) -> dict:
-    """Phase 6: aggregates from the GFJS and build_factor on the card."""
+def run_summary(cat, queries, a1, a2, dev, tracers, answers) -> dict:
+    """Phase 6: aggregates from the GFJS and build_factor on the card.
+    Each query's ``(name, args, kw, answer)`` go into ``answers`` (phase
+    10 holds the sharded frames against them)."""
     import tempfile
     import repro_torch
     from repro_torch.core import engine
@@ -828,6 +848,8 @@ def run_summary(cat, queries, a1, a2, dev, tracers) -> dict:
         out["lastfm_A1"][name] = t
         print(f"  {name}: {fmt_split(t)}; device='cpu' {t_cpu:.4f}s; "
               f"equal")
+    answers["lastfm_A1"] = [(name, args, kw, results[name])
+                            for name, args, kw in specs]
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "lastfm_A1.gfjs")
         nbytes, t_store = timed(lambda: gj.store(gfjs, path), dev)
@@ -880,10 +902,15 @@ def run_summary(cat, queries, a1, a2, dev, tracers) -> dict:
                                      device="cpu")
     print(f"summary side, lastfm_A2 (runs/level "
           f"{[lvl.num_runs for lvl in g2.levels]}):")
-    for name, args in (("count", ("count",)), ("sum A2", ("sum", "A2"))):
-        got, t = split_aggregate(gj2, args, {}, g2, dev, tracers)
-        want, t_cpu = timed(lambda: cpu2.aggregate(*args, gfjs=g2), dev)
+    answers["lastfm_A2"] = []
+    for name, args, kw in (("count", ("count",), {}),
+                           ("sum A2", ("sum", "A2"), {}),
+                           ("count by A2", ("count",), dict(by=["A2"]))):
+        got, t = split_aggregate(gj2, args, kw, g2, dev, tracers)
+        want, t_cpu = timed(lambda: cpu2.aggregate(*args, gfjs=g2, **kw),
+                            dev)
         same(got, want, f"lastfm_A2 {name}")
+        answers["lastfm_A2"].append((name, args, kw, got))
         t["cpu_wall"] = t_cpu
         out["lastfm_A2"][name] = t
         print(f"  {name}: {fmt_split(t)}; device='cpu' {t_cpu:.4f}s; equal")
@@ -1843,6 +1870,320 @@ def run_service(lastfm_kw, dev) -> dict:
     return out
 
 
+# -- phase 10: partitioned builds ---------------------------------------------
+
+PARTITIONS = 4
+
+
+def packed_sorted(cols: dict, sizes: dict) -> torch.Tensor:
+    """The rows of ``cols`` as one multiset: each row packed into one
+    int64 key (mixed radix over the domain sizes), sorted on the card."""
+    check(np.prod([float(n) for n in sizes.values()]) < 2.0 ** 63,
+          "rows do not pack into one int64 key")
+    key = None
+    for v, n in sizes.items():
+        c = cols[v].to(torch.int64)
+        key = c if key is None else key * n + c
+    return torch.sort(key).values
+
+
+def fmt_report(rep: dict) -> str:
+    return (f"sizes {rep['sizes']}, seconds "
+            f"[{', '.join(f'{w:.4f}' for w in rep['seconds'])}], skew "
+            f"{rep['skew']:.4f}x, time skew {rep['time_skew']:.4f}x, "
+            f"stragglers {[s.shard for s in rep['stragglers']]}, executor "
+            f"{rep['executor']} workers={rep['workers']} "
+            f"retries={rep['retries']}")
+
+
+def downloads(tracer, since: int) -> tuple:
+    """(bytes, summed seconds, wall seconds from the first start to the
+    last end) of the ``engine:download`` spans after the first ``since``:
+    summed seconds past the wall mean the shards' downloads overlapped."""
+    spans = [s for s in tracer.spans[since:] if s.name == "engine:download"]
+    if not spans:
+        return 0, 0.0, 0.0
+    return (sum(s.args.get("bytes", 0) for s in spans),
+            sum(s.seconds for s in spans),
+            max(s.t1 for s in spans) - min(s.t0 for s in spans))
+
+
+def peak_bytes(dev) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def run_part_a1(cat, query, mono, answers, dev, tracer, out) -> tuple:
+    """(a) lastfm_A1, PARTITIONS shards on the card, thread executor."""
+    import repro_torch
+    from repro_torch.core import engine
+    from repro_torch.dist.partition import (PartitionScheme, hash_partition,
+                                            partition_counts,
+                                            partition_histogram)
+    reset_peak(dev)
+    gj = repro_torch.GraphicalJoin(cat, query, partitions=PARTITIONS,
+                                   device=dev, tracer=tracer)
+    since = len(tracer.spans)
+    g, t_run = timed(gj.run, dev)
+    down = downloads(tracer, since)
+    plan, rep = gj.plan(), gj._executor.shard_report
+    peak_run, aux = peak_bytes(dev), g.aux_nbytes()
+    check(g.join_size == sum(g.shard_sizes()) == mono.join_size,
+          f"lastfm_A1 shard sizes {g.shard_sizes()} vs {mono.join_size}")
+    host = repro_torch.GraphicalJoin(
+        cat, query, partitions=PARTITIONS,
+        partition_var=plan.partition_var,
+        partition_fold=plan.partition_fold, generation_backend="numpy",
+        device=dev, tracer=tracer)
+    gh, t_numpy = timed(host.run, dev)
+    check(host.plan().backends["summarize"] == "numpy"
+          and len(gh.shards) == len(g.shards), "numpy shards' plan")
+    for i, (a, b) in enumerate(zip(g.shards, gh.shards)):
+        check(bool(a._launch) and levels_equal(a, b),
+              f"lastfm_A1 shard {i} vs numpy generation")
+    del gh, host
+    cols, t_des = timed(lambda: gj.desummarize(g, decode=False), dev)
+    for v, c in cols.items():
+        check(c.shape == (g.join_size,) and c.dtype == torch.int32
+              and c.device.type == dev.type, f"lastfm_A1 sharded column {v}")
+    mono_cols = engine.desummarize(mono, decode=False, device=dev)
+    sizes = {v: g.domains[v].size for v in g.column_order}
+    check(torch.equal(packed_sorted(cols, sizes),
+                      packed_sorted(mono_cols, sizes)),
+          "lastfm_A1 sharded rows vs phase 4's as a multiset")
+    del cols, mono_cols
+    tracers: list = []
+    aggs = {}
+    for name, args, kw, want in answers:
+        if name == "count by U1,A2":
+            continue
+        got, t = split_aggregate(gj, args, kw, g, dev, tracers)
+        same(got, want, f"sharded lastfm_A1 {name}")
+        aggs[name] = t
+        print(f"  (a) {name}: {fmt_split(t)}; equal to the monolithic "
+              f"frame's")
+    nshards = plan.partitions * plan.partition_fold
+    pvar = plan.partition_var
+    col = np.concatenate([c[pvar] for c in gj.enc.encoded_tables
+                          if pvar in c])
+    hist = partition_histogram(torch.from_numpy(col).to(dev), nshards,
+                               device=dev)
+    want = np.bincount(hash_partition(col, nshards), minlength=nshards)
+    check(hist.device.type == dev.type
+          and np.array_equal(hist.cpu().numpy(), want)
+          and np.array_equal(want, partition_counts(
+              gj.enc, PartitionScheme(pvar, nshards))),
+          "partition_histogram on the card vs np.bincount(hash_partition)")
+    peak = peak_bytes(dev)
+    out.update(summarize=t_run, numpy_summarize=t_numpy, desummarize=t_des,
+               timings={k: float(v) for k, v in gj.timings.items()},
+               report={k: v for k, v in rep.items() if k != "stragglers"},
+               stragglers=[s.shard for s in rep["stragglers"]],
+               aux_nbytes=aux, peak_run=peak_run, peak=peak,
+               histogram=hist.cpu().tolist(), aggregates=aggs,
+               download_bytes=down[0], download_span_s=down[1],
+               download_window_s=down[2],
+               partition_var=pvar, fold=plan.partition_fold)
+    print(f"  (a) lastfm_A1, {PARTITIONS} shards by hash({pvar}) "
+          f"x{plan.partition_fold} fold: |Q|={g.join_size} = sum of the "
+          f"shards; run {t_run:.4f}s (phases "
+          f"{json.dumps(out['timings'])}); the same shards on numpy "
+          f"{t_numpy:.4f}s, equal level for level")
+    print(f"  (a) shard report: {fmt_report(rep)}")
+    print(f"  (a) engine:download spans: {down[0]} B, {down[1]:.4f}s "
+          f"summed over the shards in a {down[2]:.4f}s window")
+    print(f"  (a) desummarize {t_des:.4f}s, rows equal phase 4's as a "
+          f"multiset; after run(): aux_nbytes {aux} (the shards' device "
+          f"memos), peak device bytes {peak_run}; in (a) {peak}")
+    print(f"  (a) partition_histogram of {pvar}'s {len(col)} codes on the "
+          f"card {out['histogram']}, equal to np.bincount(hash_partition)")
+    return g, plan
+
+
+def run_part_a2(cat, query, a2, answers, dev, tracer, out) -> None:
+    """(b) lastfm_A2, PARTITIONS shards on the card."""
+    import repro_torch
+    from repro_torch.core.gfjs import desummarize_range
+    reset_peak(dev)
+    gj = repro_torch.GraphicalJoin(cat, query, partitions=PARTITIONS,
+                                   device=dev, tracer=tracer)
+    since = len(tracer.spans)
+    g, t_run = timed(gj.run, dev)
+    down = downloads(tracer, since)
+    rep = gj._executor.shard_report
+    peak_run, aux = peak_bytes(dev), g.aux_nbytes()
+    check(g.join_size == sum(g.shard_sizes()) == a2["rows"],
+          f"lastfm_A2 shard sizes {g.shard_sizes()} vs {a2['rows']}")
+    tracers: list = []
+    aggs = {}
+    for name, args, kw, want in answers:
+        if name == "sum A2":
+            continue
+        got, t = split_aggregate(gj, args, kw, g, dev, tracers)
+        same(got, want, f"sharded lastfm_A2 {name}")
+        aggs[name] = t
+        print(f"  (b) {name}: {fmt_split(t)}; equal to the monolithic "
+              f"frame's")
+    reset_peak(dev)
+    cols, t_des = timed(lambda: gj.desummarize(g, decode=False), dev)
+    peak = peak_bytes(dev)
+    for v, c in cols.items():
+        check(c.shape == (g.join_size,) and c.device.type == dev.type,
+              f"lastfm_A2 sharded column {v}")
+    lo_shard, windows = 0, 0
+    for i, shard in enumerate(g.shards):
+        n = shard.join_size
+        for lo in sorted({0, n // 2, max(n - 4096, 0)}):
+            hi = min(lo + 4096, n)
+            if hi <= lo:
+                continue
+            win = desummarize_range(shard, lo, hi, decode=False)
+            for v in win:
+                check(np.array_equal(
+                    cols[v][lo_shard + lo:lo_shard + hi].cpu().numpy(),
+                    win[v]), f"lastfm_A2 shard {i} window [{lo},{hi}) {v}")
+            windows += 1
+        lo_shard += n
+    del cols
+    out.update(summarize=t_run, desummarize=t_des,
+               timings={k: float(v) for k, v in gj.timings.items()},
+               report={k: v for k, v in rep.items() if k != "stragglers"},
+               stragglers=[s.shard for s in rep["stragglers"]],
+               aux_nbytes=aux, peak_run=peak_run, peak=peak,
+               aggregates=aggs, monolithic_run=a2["t_run"],
+               download_bytes=down[0], download_span_s=down[1],
+               download_window_s=down[2],
+               monolithic_desummarize=a2["t_expand"])
+    print(f"  (b) lastfm_A2, {PARTITIONS} shards by hash("
+          f"{gj.plan().partition_var}): |Q|={g.join_size} = sum of the "
+          f"shards; run {t_run:.4f}s (phase 5's monolithic run "
+          f"{a2['t_run']:.4f}s; phases {json.dumps(out['timings'])}), "
+          f"desummarize {t_des:.4f}s (phase 5's {a2['t_expand']:.4f}s)")
+    print(f"  (b) shard report: {fmt_report(rep)}")
+    print(f"  (b) engine:download spans: {down[0]} B, {down[1]:.4f}s "
+          f"summed over the shards in a {down[2]:.4f}s window (phase 5: "
+          f"{a2['run']['download_s']:.4f}s)")
+    print(f"  (b) {windows} shard windows equal numpy desummarize_range; "
+          f"after run(): aux_nbytes {aux} (the shards' device memos), peak "
+          f"device bytes {peak_run} (phase 5's {a2['peak_run']}); in the "
+          f"desummarize {peak} (the memos, {g.join_size} x "
+          f"{len(g.column_order)} int32 and one shard's level)")
+
+
+def run_part_process(cat, query, dev, tracer, out) -> None:
+    """(c) lastfm_A1, 2 shards built on numpy in spawned workers."""
+    import repro_torch
+    from repro_torch.dist.actions import shutdown_shared_executor
+    gj = repro_torch.GraphicalJoin(cat, query, partitions=2,
+                                   shard_executor="process",
+                                   generation_backend="numpy", device=dev,
+                                   tracer=tracer)
+    try:
+        g, t_run = timed(gj.run, dev)
+    finally:
+        shutdown_shared_executor()
+    plan, rep = gj.plan(), gj._executor.shard_report
+    check(rep["executor"] == "process" and rep["retries"] == 0,
+          f"the process executor: {rep['executor']}, {rep['retries']} "
+          f"retries")
+    thr = repro_torch.GraphicalJoin(cat, query, partitions=2,
+                                    partition_var=plan.partition_var,
+                                    partition_fold=plan.partition_fold,
+                                    device=dev, tracer=tracer)
+    gt, t_thr = timed(thr.run, dev)
+    check(len(g.shards) == len(gt.shards), "process shard count")
+    for i, (a, b) in enumerate(zip(g.shards, gt.shards)):
+        check(levels_equal(a, b), f"process shard {i} vs the thread "
+              f"executor's")
+    out.update(summarize=t_run, thread_summarize=t_thr,
+               report={k: v for k, v in rep.items() if k != "stragglers"})
+    print(f"  (c) lastfm_A1, 2 shards by hash({plan.partition_var}) on "
+          f"numpy in spawned workers (the process executor generates on "
+          f"numpy by the reference's rule): run {t_run:.4f}s (spawn "
+          f"included), equal level for level to the thread executor's "
+          f"card shards ({t_thr:.4f}s)")
+    print(f"  (c) shard report: {fmt_report(rep)}")
+
+
+def run_part_service(cat, query, a1_answers, dev, out) -> None:
+    """(d) JoinService(partitions=PARTITIONS) on the card."""
+    import repro_torch
+    from repro_torch.core.gfjs import ShardedGFJS
+    from repro_torch.relational.table import Catalog
+    from repro_torch.summary import JoinService
+    want = {name: got for name, _, _, got in a1_answers}
+    svc = JoinService(Catalog(dict(cat.tables)), partitions=PARTITIONS,
+                      device=dev)
+    cold = svc.frame(query)
+    check(cold.source == "computed"
+          and isinstance(cold.frame.gfjs, ShardedGFJS),
+          f"cold partitioned request: {cold.source}")
+    warm = svc.frame(query)
+    check(warm.source == "memory", f"warm request: {warm.source}")
+    count, t_count = timed(lambda: svc.count(query), dev)
+    same(count, want["count"], "service COUNT")
+    by, t_by = timed(lambda: svc.group_by(query, "A1", count="count"), dev)
+    same(by, want["count by A1"], "service GROUP BY A1")
+    n = cat["user_friends"].num_rows
+    users = int(cat["user_friends"]["userID"].max())
+    rows = {"userID": np.asarray([0, 5, users + 2], np.int64),
+            "friendID": np.asarray([users + 2, 7, 2], np.int64)}
+    svc.append("user_friends", rows)
+    rebuilt = svc.frame(query)
+    check(rebuilt.source == "computed",
+          f"after an append: {rebuilt.source}, not a rebuild")
+    fresh = repro_torch.GraphicalJoin(svc.catalog, query, device=dev)
+    check(rebuilt.frame.count() == fresh.join_size(),
+          "the rebuilt partitioned entry's COUNT")
+    aux = rebuilt.frame.gfjs.aux_nbytes()
+    shard_aux = sum(s.aux_nbytes() for s in rebuilt.frame.gfjs.shards)
+    del cold, warm, rebuilt, fresh
+    freed = freed_bytes(dev, lambda: svc.invalidate("user_friends"))
+    check(aux == shard_aux and freed >= aux,
+          f"invalidate freed {freed} B of a {aux} B sharded memo")
+    out.update(cold=svc.stats(), count_s=t_count, group_by_s=t_by,
+               aux_nbytes=aux, freed=freed, appended_to=n)
+    print(f"  (d) JoinService(partitions={PARTITIONS}): computed, memory; "
+          f"COUNT {t_count:.4f}s and GROUP BY A1 {t_by:.4f}s equal (a)'s; "
+          f"after a 3-row append: computed (a rebuild); invalidate freed "
+          f"{freed} B >= the shards' aux_nbytes {aux} B")
+
+
+def run_partitioned(cat, queries, mono_a1, a2, answers, dev) -> dict:
+    """Phase 10: partitioned builds on the card, under one tracer."""
+    from repro_torch.obs import check as trace_check
+    from repro_torch.obs.trace import Tracer
+    out: dict = {"a": {}, "b": {}, "c": {}, "d": {}}
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    g, _ = run_part_a1(cat, queries["lastfm_A1"], mono_a1,
+                       answers["lastfm_A1"], dev, tracer, out["a"])
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_part_a2(cat, queries["lastfm_A2"], a2, answers["lastfm_A2"], dev,
+                tracer, out["b"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_part_process(cat, queries["lastfm_A1"], dev, tracer, out["c"])
+    with tracer.span("service"):
+        run_part_service(cat, queries["lastfm_A1"], answers["lastfm_A1"],
+                         dev, out["d"])
+    doc = tracer.to_chrome_trace()
+    errs = trace_check.validate(doc, expect_shards=True)
+    check(not errs, f"the partitioned trace: {errs}")
+    out["trace_spans"] = len(doc["traceEvents"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  the trace ({out['trace_spans']} events) passes "
+          f"obs.check.validate(expect_shards=True); phase "
+          f"{out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the per-shape measurements "
@@ -1873,7 +2214,7 @@ def main() -> int:
 
 
 def smoke(dev, lastfm_kw, out_path, header) -> list:
-    """Phases 3-9 on ``dev``; returns the kernels line's entries.  (The
+    """Phases 3-10 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
     from repro_torch.kernels.dense_message import dense_message
@@ -1911,7 +2252,8 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     mul_segsum.launches = run_boundaries.launches = 0
     fb1 = fallbacks.value
     tracers: list = []
-    summary = run_summary(cat, queries, a1, a2, dev, tracers)
+    answers: dict = {}
+    summary = run_summary(cat, queries, a1, a2, dev, tracers, answers)
     summary_launches = {"mul_segsum": mul_segsum.launches,
                         "run_boundaries": run_boundaries.launches}
     for name, n in summary_launches.items():
@@ -2004,7 +2346,9 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
           "kernel against tiled:")
     k_sweep = dense_k_sweep(dev, 103)
 
-    a1.pop("gfjs")              # the serving phase builds its own
+    # the serving phase builds its own; phase 10 desummarizes lastfm_A1
+    # again from its levels (its device memo goes now)
+    mono_a1 = memo_free_copy(a1.pop("gfjs"))
     gc.collect()
     torch.cuda.empty_cache()
     expand_many.launches = mul_segsum.launches = 0
@@ -2020,6 +2364,22 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     print(f"serving path: launches {service['launches']}, numpy "
           f"fallbacks=0")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    expand_many.launches = mul_segsum.launches = 0
+    run_boundaries.launches = 0
+    fb4 = fallbacks.value
+    print("partitioned builds:")
+    partitioned = run_partitioned(cat, queries, mono_a1, a2, answers, dev)
+    partitioned["launches"] = {"expand_many": expand_many.launches,
+                               "mul_segsum": mul_segsum.launches,
+                               "run_boundaries": run_boundaries.launches}
+    for name, n in partitioned["launches"].items():
+        check(n > 0, f"the partitioned path launched no {name} kernel")
+    check(fallbacks.value == fb4, "numpy fallbacks on the partitioned path")
+    print(f"partitioned path: launches {partitioned['launches']}, numpy "
+          f"fallbacks=0")
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -2030,7 +2390,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             summary_launches=summary_launches, dense=dense,
             message_shapes=message_rows, message_launches=message_launches,
             thin_launches=thin_launches, k_sweep=k_sweep, rates=rates,
-            service=service,
+            service=service, partitioned=partitioned,
             previous_ms={"/".join(map(str, k)): v
                          for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(

@@ -9,11 +9,15 @@
     state = gj.capture_state(gfjs)                # with record_trace=True
     state = gj.refresh(state, catalog.append("t", rows))
 
-Same surface as ``repro.core.api.GraphicalJoin`` for the monolithic path,
-incremental refresh, the message cache, the summary algebra and storage;
-``device`` names where the device phases and the aggregates' reductions
-run (``"cpu"`` runs the plain PyTorch versions of the kernels, and
-``"cuda"`` without a card raises).
+    gj = GraphicalJoin(catalog, query, partitions=4)   # hash-sharded build
+    sharded = gj.run()                            # a ShardedGFJS
+    n = gj.aggregate("count", gfjs=sharded)       # merged over the shards
+
+Same surface as ``repro.core.api.GraphicalJoin`` for the monolithic and
+partitioned paths, incremental refresh, the message cache, the summary
+algebra and storage; ``device`` names where the device phases and the
+aggregates' reductions run (``"cpu"`` runs the plain PyTorch versions of
+the kernels, and ``"cuda"`` without a card raises).
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.elimination import Generator
-from repro_torch.core.gfjs import GFJS, desummarize_range, stream_desummarize
+from repro_torch.core.gfjs import (GFJS, ShardedGFJS, desummarize_range,
+                                   stream_desummarize)
 from repro_torch.core.storage import load_gfjs, save_gfjs
 from repro_torch.plan.executor import Executor
 from repro_torch.plan.ir import PhysicalPlan
@@ -54,10 +59,21 @@ class GraphicalJoin:
     model with calibration ratios; ``tracer`` / ``metrics`` plug a
     :class:`repro_torch.obs.trace.Tracer` /
     :class:`repro_torch.obs.metrics.MetricsRegistry` into every phase.
-    ``partitions`` > 1 is not ported yet and raises
-    :class:`NotImplementedError` when the plan is built;
-    ``partition_fold`` and ``shard_executor`` are accepted as in the
-    reference and refused there for a monolithic plan.
+    ``partitions`` > 1 runs hash-partitioned
+    (``repro_torch/dist/partition.py``): ``run()`` returns a
+    :class:`~repro_torch.core.gfjs.ShardedGFJS` whose shards were built
+    independently, each generated on ``device`` by the torch engine from
+    a worker thread (``partition_var`` overrides the planner's partition
+    key; incremental refresh is unsupported and falls back to rebuild);
+    ``shard_executor="process"`` instead sends the shard builds, which
+    then generate on numpy, to the spawn pool of
+    ``repro_torch/dist/actions.py`` (with ``generation_backend="numpy"``;
+    under the torch backend the shards stay on threads, as the
+    reference's jax backend does), ``partition_fold`` over-partitions for
+    skew smoothing, and ``shard_timeout`` (seconds) bounds each
+    process-shard action before the degrade-to-thread retry.
+    ``desummarize`` and ``aggregate`` take a sharded summary as they take
+    a monolithic one.
     """
 
     def __init__(
@@ -72,8 +88,10 @@ class GraphicalJoin:
         record_trace: bool = False,
         generation_backend: Optional[str] = None,
         partitions: Optional[int] = None,
+        partition_var: Optional[str] = None,
         partition_fold: Optional[int] = None,
         shard_executor: Optional[str] = None,
+        shard_timeout: Optional[float] = None,
         hybrid: Optional[bool] = None,
         tracer=None,
         metrics=None,
@@ -92,8 +110,10 @@ class GraphicalJoin:
             record_trace=record_trace,
             generation_backend=generation_backend,
             partitions=partitions,
+            partition_var=partition_var,
             partition_fold=partition_fold,
             shard_executor=shard_executor,
+            shard_timeout=shard_timeout,
             hybrid=hybrid,
             tracer=tracer,
             metrics=metrics,
@@ -145,6 +165,7 @@ class GraphicalJoin:
             ex.plan = None
             ex.logical = None
             ex.generator = None
+            ex._sharded = None
 
     # -- phases ------------------------------------------------------------
     def build_model(self) -> "GraphicalJoin":
@@ -160,17 +181,24 @@ class GraphicalJoin:
         self._executor.build_generator()
         return self
 
-    def summarize(self) -> GFJS:
+    def summarize(self) -> Union[GFJS, ShardedGFJS]:
         return self._executor.summarize()
 
     # -- convenience -------------------------------------------------------
     def join_size(self) -> int:
-        """|Q| without touching the data again (sum of the root marginal)."""
+        """|Q| without touching the data again (sum of the root marginal).
+
+        Under a partitioned plan there is no monolithic generator to read,
+        so the answer is the sharded summary's: the sum of the shards'
+        root marginals.
+        """
+        if self._executor.build_plan().partitions > 1:
+            return self._executor.summarize().join_size
         if self.generator is None:
             self.build_generator()
         return self.generator.join_size
 
-    def run(self) -> GFJS:
+    def run(self) -> Union[GFJS, ShardedGFJS]:
         """build_model -> plan -> build_generator -> summarize."""
         return self.summarize()
 
@@ -193,13 +221,17 @@ class GraphicalJoin:
         return self._executor.refresh(state, deltas)
 
     def explain(self, *, analyze: bool = False) -> str:
-        """Render the plan, annotated with any timings measured so far."""
+        """Render the plan, annotated with any timings measured so far;
+        ``analyze=True`` adds the per-step seconds (max and sum over
+        shards), the per-shard breakdown and the stragglers."""
         return self._executor.explain(analyze=analyze)
 
-    def desummarize(self, gfjs: GFJS, *, decode: bool = True
+    def desummarize(self, gfjs: Union[GFJS, ShardedGFJS], *,
+                    decode: bool = True
                     ) -> Dict[str, Union[torch.Tensor, np.ndarray]]:
-        """All |Q| rows: numpy raw values, or (``decode=False``) int32 code
-        tensors kept on the device."""
+        """All |Q| rows (a sharded summary's in shard order): numpy raw
+        values, or (``decode=False``) int32 code tensors kept on the
+        device."""
         return self._executor.desummarize(gfjs, decode=decode)
 
     def desummarize_range(self, gfjs: GFJS, lo: int, hi: int, *,
@@ -216,7 +248,7 @@ class GraphicalJoin:
     def aggregate(self, op: str, var: Optional[str] = None, *,
                   by: Optional[Sequence[str]] = None,
                   where: Optional[Dict] = None,
-                  gfjs: Optional[GFJS] = None):
+                  gfjs: Optional[Union[GFJS, ShardedGFJS]] = None):
         """Answer an aggregate from the summary — O(runs), never O(|Q|).
 
             gj.aggregate("count")

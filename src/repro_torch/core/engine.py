@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.elimination import Generator, Psi
-from repro_torch.core.gfjs import GFJS, LevelSummary
+from repro_torch.core.gfjs import GFJS, LevelSummary, ShardedGFJS
 from repro_torch.core.gfjs import generate_gfjs as generate_gfjs_numpy
 from repro_torch.core.potentials import INT, Factor, pack_keys
 from repro_torch.kernels import ops
@@ -366,6 +366,7 @@ def group_runs_device(
 
 def desummarize(
     gfjs: GFJS, *, decode: bool = False, device: Union[str, torch.device] = "cuda",
+    into: Optional[Dict[str, torch.Tensor]] = None, offset: int = 0,
 ) -> Dict[str, Union[torch.Tensor, np.ndarray]]:
     """RLE-expand every level with one fused kernel launch per level.
 
@@ -376,40 +377,98 @@ def desummarize(
     identity level (one run per row, every run of length 1) launches
     nothing: its columns are a device copy of its codes.  ``decode=False``
     keeps the codes on ``device``: an int32 tensor of ``join_size`` rows
-    per column (int64 for a level expanded on numpy).  ``decode=True``
-    copies each column to the host and decodes it through the GFJS
-    domains, returning numpy arrays of raw values.
+    per column.  ``decode=True`` copies each column to the host and
+    decodes it through the GFJS domains, returning numpy arrays of raw
+    values.
+
+    ``into`` (variable -> column on ``device``) receives each column in
+    rows ``[offset, offset + join_size)`` instead of a new tensor and is
+    returned; ``decode`` must then be False.  :func:`desummarize_sharded`
+    writes its shards so.
+
+    A join past the int32 kernel range raises.  A level whose codes pass
+    int32 raises on a CUDA device; on the CPU it expands on numpy, is
+    counted in ``engine.numpy_fallbacks``, and its columns are int64.
     """
-    dev = resolve_device(device)
     total = gfjs.join_size
     if total > I32_MAX:
         raise ValueError("join size exceeds the int32 kernel range; "
                          "use range-sharded desummarization")
+    if into is not None and decode:
+        raise ValueError("decode=True cannot write into device columns")
+    dev = resolve_device(device)
     out: Dict[str, Union[torch.Tensor, np.ndarray]] = {}
+
+    def put(v: str, col: torch.Tensor) -> None:
+        if into is None:
+            out[v] = gfjs.domains[v].decode(col.cpu().numpy()) \
+                if decode else col
+            return
+        if col.dtype == torch.int64 and into[v].dtype != torch.int64:
+            into[v] = into[v].to(torch.int64)
+        into[v][offset:offset + total].copy_(col)
+
     for li, lvl in enumerate(gfjs.levels):
         with _span(f"desummarize:level:{li}", cat="gen", backend="torch",
                    device=True, runs=lvl.num_runs) as sp:
             bounds, codes = ops.gfjs_launch(gfjs, li, dev)     # memoized
             if codes is None:
                 # codes past the int32 kernel range (domains >= 2**31
-                # values): numpy-expand this level instead of wrapping
+                # values): the kernel cannot carry them
+                if dev.type == "cuda":
+                    raise ValueError(
+                        f"level {li} holds codes past the int32 kernel "
+                        "range; expand it on the CPU device")
                 count_numpy_fallback(sp, "codes past int32")
                 for v in lvl.vars:
-                    col = np.repeat(lvl.key_cols[v], lvl.freq)
-                    out[v] = gfjs.domains[v].decode(col) if decode \
-                        else torch.from_numpy(col).to(dev)
+                    put(v, torch.from_numpy(np.repeat(lvl.key_cols[v],
+                                                      lvl.freq)))
                 continue
             if bounds is None:
-                # the identity level: a copy, so that a caller writing
-                # into a column cannot change the memo
+                # the identity level: a copy (``into`` copies too), so
+                # that a caller writing into a column cannot change the
+                # memo
                 sp.set(identity=True)
-                cols = codes.clone()
+                cols = codes.clone() if into is None else codes
             else:
                 cols = ops.rle_expand_many(codes, bounds, total)
             for k, v in enumerate(lvl.vars):
-                out[v] = gfjs.domains[v].decode(cols[k].cpu().numpy()) \
-                    if decode else cols[k]
+                put(v, cols[k])
+            del cols
+    if into is not None:
+        return into
     return {v: out[v] for v in gfjs.column_order}
+
+
+def desummarize_sharded(
+    sharded: ShardedGFJS, *, decode: bool = False,
+    device: Union[str, torch.device] = "cuda",
+) -> Dict[str, Union[torch.Tensor, np.ndarray]]:
+    """A ``ShardedGFJS``'s rows in shard order, as the reference
+    concatenates them: :func:`desummarize` writes each shard into its
+    slice of one preallocated column per variable, so at most one level
+    of one shard is held beside the result (a concatenation of per-shard
+    columns would hold the result twice).  ``decode=False`` keeps the
+    codes on ``device``; ``decode=True`` decodes each column on the host.
+    A shard past the int32 kernel range raises before anything is
+    allocated, as :func:`desummarize` does for such a join.
+    """
+    if any(s.join_size > I32_MAX for s in sharded.shards):
+        raise ValueError("a shard's join size exceeds the int32 kernel "
+                         "range; use more partitions")
+    dev = resolve_device(device)
+    out = {v: torch.empty(sharded.join_size, dtype=torch.int32, device=dev)
+           for v in sharded.column_order}
+    lo = 0
+    for si, shard in enumerate(sharded.shards):
+        with _span(f"desummarize:shard:{si}", cat="gen", backend="torch",
+                   device=True, rows=shard.join_size):
+            desummarize(shard, device=dev, into=out, offset=lo)
+        lo += shard.join_size
+    if decode:
+        return {v: sharded.domains[v].decode(col.cpu().numpy())
+                for v, col in out.items()}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """GFJS container format — the compute-and-reuse store/load path **and**
-the wire format of the reference's shard-action protocol (not ported yet).
+the wire format of the shard-action protocol (repro_torch/dist/actions.py).
 
 Single container: an 8-byte magic+version, a JSON manifest (level
 structure, dtypes, domains metadata), then compressed binary blobs.  Each

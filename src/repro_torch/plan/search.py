@@ -203,10 +203,6 @@ def plan_query(enc: EncodedQuery, *,
     partitions = 1 if partitions is None else int(partitions)
     if partitions < 1:
         raise ValueError(f"partitions must be >= 1, got {partitions}")
-    if partitions > 1:
-        raise NotImplementedError(
-            "partitions > 1 is not ported yet (ROADMAP.md queue 1: "
-            "partitioned builds)")
     if partitions == 1 and partition_var is not None:
         raise ValueError(
             f"partition_var={partition_var!r} requires partitions > 1 "
@@ -347,6 +343,20 @@ def _plan_query_inner(enc: EncodedQuery, t0: float, *,
     backends = _select_backends()
     if generation_backend is not None:
         backends["summarize"] = generation_backend
+    if partitions > 1:
+        from repro_torch.dist.partition import (choose_partition_fold,
+                                                choose_partition_var)
+        if partition_var is None:
+            partition_var = choose_partition_var(
+                steps, chosen.order, stats=logical.stats,
+                partitions=partitions)
+        elif partition_var not in graph.variables:
+            raise ValueError(
+                f"partition variable {partition_var!r} is not a query "
+                f"variable (have: {sorted(graph.variables)})")
+        if partition_fold is None:
+            partition_fold = choose_partition_fold(
+                logical.stats, partition_var, partitions)
     physical = PhysicalPlan(
         query_name=query.name,
         order=chosen.order,

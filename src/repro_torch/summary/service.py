@@ -180,9 +180,12 @@ class JoinService:
         # sharded summaries) — the aggregate API is shape-oblivious
         self.partitions = int(partitions)
         # partitioned-execution knobs, pinned into every compiled plan:
-        # shard_executor="process" routes shard builds to the
-        # repro/dist/actions.py spawn pool; partition_fold over-partitions
-        # for skew smoothing (None = planner auto-choice from stats)
+        # shard_executor="process" names the repro_torch/dist/actions.py
+        # spawn pool, which generates on numpy — the service's plans
+        # generate with the torch engine, so their shards stay on threads
+        # on self.device, as the reference keeps its jax shards on threads;
+        # partition_fold over-partitions for skew smoothing (None =
+        # planner auto-choice from stats)
         self.partition_fold = partition_fold
         self.shard_executor = shard_executor
         self.max_plans = int(max_plans)

@@ -667,3 +667,158 @@ def test_leaders_of_two_cold_keys_race_through_the_staged_download(
             assert got[n].frame.gfjs._launch
             assert_gfjs_equal(got[n].frame.gfjs, want[n])
     torch.cuda.synchronize(dev)
+
+
+# -- partitioned builds on the card -------------------------------------------
+
+@pytest.mark.parametrize("partitions,fold", [(2, 1), (4, 1), (3, 2)])
+def test_partitioned_build_on_the_card_equals_the_cpu(partitions, fold):
+    dev = _card()
+    cat, qs = lastfm_like(**SERVE_LASTFM)
+    for name in ("lastfm_A1", "lastfm_A2"):
+        card = repro_torch.GraphicalJoin(cat, qs[name], partitions=partitions,
+                                         partition_fold=fold, device="cuda")
+        host = repro_torch.GraphicalJoin(cat, qs[name], partitions=partitions,
+                                         partition_fold=fold, device="cpu")
+        launches = expand_many.launches
+        got, want = card.run(), host.run()
+        assert expand_many.launches > launches
+        assert card.plan().signature() == host.plan().signature()
+        assert got.shard_sizes() == want.shard_sizes()
+        for a, b in zip(got.shards, want.shards):
+            assert_gfjs_equal(a, b)
+            assert all(t.device.type == "cuda" for _, meta in
+                       a._launch.values() for t in meta if t is not None)
+        cols = card.desummarize(got, decode=False)
+        host_cols = host.desummarize(want, decode=False)
+        assert list(cols) == list(host_cols)
+        for v in cols:
+            assert cols[v].device.type == "cuda"
+            assert cols[v].dtype == torch.int32
+            assert torch.equal(cols[v].cpu(), host_cols[v])
+        values = card.desummarize(got)
+        for v, col in np_desummarize(want, decode=True).items():
+            np.testing.assert_array_equal(values[v], col)
+    torch.cuda.synchronize(dev)
+
+
+def test_sharded_desummarize_on_the_card_memo_free_copy():
+    """A loaded (memo-free) sharded GFJS uploads each shard's levels once
+    and expands equal to the memoized shards."""
+    from repro_torch.core.gfjs import ShardedGFJS
+    dev = _card()
+    cat, qs = lastfm_like(**SERVE_LASTFM)
+    gj = repro_torch.GraphicalJoin(cat, qs["lastfm_A1"], partitions=4,
+                                   device="cuda")
+    g = gj.run()
+    copy = ShardedGFJS([memo_free(s) for s in g.shards], g.column_order,
+                       g.join_size, g.domains, g.partition_var, g.salt)
+    a = engine.desummarize_sharded(g, device=dev)
+    b = engine.desummarize_sharded(copy, device=dev)
+    for v in a:
+        assert torch.equal(a[v], b[v])
+    assert copy.aux_nbytes() == g.aux_nbytes()
+
+
+def test_codes_past_int32_raise_on_the_card():
+    """The kernel carries int32 codes only: on the card a level whose
+    codes pass int32 raises, monolithic and sharded, and nothing is
+    expanded on numpy or counted (the CPU device's numpy route is tested
+    in tests/test_torch_engine.py and tests/test_torch_partition.py)."""
+    from repro_torch.core.gfjs import ShardedGFJS
+    from repro_torch.interop import gfjs_from_arrays
+    from repro_torch.obs.metrics import REGISTRY
+    dev = _card()
+    fallbacks = REGISTRY.counter("engine.numpy_fallbacks")
+    big = (1 << 31) + np.asarray([3, 7], np.int64)
+    g = gfjs_from_arrays([(("A",), {"A": big}, np.asarray([2, 1], np.int64)),
+                          (("B",), {"B": np.asarray([1, 0, 2])},
+                           np.ones(3, np.int64))], ["A", "B"], 3, {})
+    sharded = ShardedGFJS([g], ["A", "B"], 3, {}, "A")
+    before = fallbacks.value
+    with pytest.raises(ValueError, match="int32"):
+        engine.desummarize(g, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        engine.desummarize_sharded(sharded, device=dev)
+    assert fallbacks.value == before
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 7])
+def test_partition_histogram_on_the_card_equals_numpy(k):
+    from repro_torch.dist.partition import (hash_partition,
+                                            hash_partition_device,
+                                            partition_histogram)
+    dev = _card()
+    rng = np.random.default_rng(k)
+    codes = np.concatenate([rng.integers(0, 1 << 31, 1 << 20),
+                            [0, (1 << 31) - 1, (1 << 32) - 1, 1 << 40]])
+    for salt in (0, 1, (1 << 32) - 1):
+        want = hash_partition(codes, k, salt=salt)
+        t = torch.from_numpy(codes).to(dev)
+        got = hash_partition_device(t, k, salt=salt, device=dev)
+        assert got.device.type == "cuda" and got.dtype == torch.int32
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        hist = partition_histogram(t, k, salt=salt, device=dev)
+        assert hist.device.type == "cuda"
+        np.testing.assert_array_equal(hist.cpu().numpy(),
+                                      np.bincount(want, minlength=k))
+
+
+def test_concurrent_partitioned_builds_on_the_card_are_exact(monkeypatch):
+    """Two partitioned builds from two threads, four shard threads each,
+    every level through the staged download: all shards equal numpy's."""
+    import threading
+    dev = _card()
+    monkeypatch.setattr(engine, "STAGE_BYTES", 1 << 12)
+    cat, qs = lastfm_like(**SERVE_LASTFM)
+    names = ("lastfm_A1", "lastfm_A2")
+    want = {n: repro_torch.GraphicalJoin(
+        cat, qs[n], partitions=4, device="cpu",
+        generation_backend="numpy").run() for n in names}
+    for _ in range(3):
+        got, errors = {}, []
+        barrier = threading.Barrier(2)
+
+        def build(name):
+            try:
+                barrier.wait()
+                got[name] = repro_torch.GraphicalJoin(
+                    cat, qs[name], partitions=4, device="cuda").run()
+            except Exception as e:  # pragma: no cover - reported below
+                errors.append(e)
+
+        ts = [threading.Thread(target=build, args=(n,)) for n in names]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        assert not errors, errors
+        for n in names:
+            for a, b in zip(got[n].shards, want[n].shards):
+                assert_gfjs_equal(a, b)
+    torch.cuda.synchronize(dev)
+
+
+def test_partitioned_service_invalidate_frees_the_shards_memos():
+    import gc
+    from repro_torch.core.gfjs import ShardedGFJS
+    from repro_torch.summary import JoinService
+    dev = _card()
+    cat, qs = lastfm_like(**SERVE_LASTFM)
+    q = qs["lastfm_A1"]
+    svc = JoinService(cat, partitions=4, device="cuda")
+    reply = svc.frame(q)
+    assert reply.source == "computed"
+    g = reply.frame.gfjs
+    assert isinstance(g, ShardedGFJS)
+    aux = g.aux_nbytes()
+    assert aux == sum(_memo_bytes(s) for s in g.shards) > 0
+    assert svc.frame(q).source == "memory"
+    del reply, g
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    svc.invalidate("user_friends")
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    assert held - torch.cuda.memory_allocated(dev) >= aux

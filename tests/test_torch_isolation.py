@@ -2,11 +2,12 @@
 
 A child process with ``jax`` and ``repro`` blocked imports ``repro_torch``
 and runs Figure 1 on the CPU, desummarizes it and aggregates from it, then
-calls ``ops.dense_message`` and ``ops.rle_expand``, and answers a COUNT
-through a ``JoinServer`` in front of a ``JoinService``; a source scan
-finds no jax or ``repro`` import under ``src/repro_torch/`` (the serving
-modules included) or in ``chip_smoke.py``; and a ``cuda`` entry point
-without a card raises instead of running on the CPU.
+calls ``ops.dense_message`` and ``ops.rle_expand``, answers a COUNT
+through a ``JoinServer`` in front of a ``JoinService``, and runs a
+``partitions=2`` build; a source scan finds no jax or ``repro`` import
+under ``src/repro_torch/`` (the serving and partitioning modules
+included) or in ``chip_smoke.py``; and a ``cuda`` entry point without a
+card raises instead of running on the CPU.
 """
 
 import os
@@ -22,6 +23,7 @@ import torch
 import repro_torch
 from repro_torch.core import engine
 from repro_torch.core.potentials import Factor
+from repro_torch.dist.partition import partition_histogram
 from repro_torch.relational.synth import figure1
 from repro_torch.summary import JoinService
 from repro_torch.summary.algebra import SummaryFrame
@@ -49,6 +51,8 @@ from repro_torch.serve import JoinServer
 from repro_torch.summary import JoinService
 server = JoinServer(JoinService(cat, device="cpu"))
 n = server.frame(q).frame.count()
+sharded = repro_torch.GraphicalJoin(cat, q, device="cpu", partitions=2).run()
+assert sharded.num_partitions == 2 and sharded.join_size == n
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print(len(rows["A"]), by_a["A"].tolist(), by_a["count"].tolist(),
@@ -75,7 +79,8 @@ def test_source_imports_neither_jax_nor_reference():
              for f in files[:-1]}
     assert {"obs/check.py", "summary/cache.py", "summary/incremental.py",
             "summary/msgcache.py", "summary/service.py",
-            "serve/server.py", "serve/__init__.py"} <= names
+            "serve/server.py", "serve/__init__.py", "dist/partition.py",
+            "dist/actions.py", "dist/__init__.py", "ft/straggler.py"} <= names
     bad = {str(f.relative_to(ROOT)): _IMPORT.findall(f.read_text())
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -84,13 +89,16 @@ def test_source_imports_neither_jax_nor_reference():
 @pytest.mark.parametrize("entry", ["facade", "generate", "desummarize",
                                    "build_factor", "segment_weighted_sum",
                                    "group_runs_device", "summary_frame",
-                                   "maybe_dense_message", "join_service"])
+                                   "maybe_dense_message", "join_service",
+                                   "partition_histogram",
+                                   "partitioned_facade"])
 def test_cuda_without_a_card_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cat, q = figure1()
-    if entry == "facade":
+    if entry in ("facade", "partitioned_facade"):
+        kw = dict(partitions=2) if entry == "partitioned_facade" else {}
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            repro_torch.GraphicalJoin(cat, q)
+            repro_torch.GraphicalJoin(cat, q, **kw)
         return
     gj = repro_torch.GraphicalJoin(cat, q, device="cpu")
     gfjs = gj.run()
@@ -108,6 +116,7 @@ def test_cuda_without_a_card_raises(monkeypatch, entry):
             Factor(("P", "V"), np.zeros((1, 2), np.int64), ones[:1],
                    ones[:1], (1, 1)), "V", ones[:1]),
         "join_service": lambda: JoinService(cat),
+        "partition_histogram": lambda: partition_histogram(ones, 2),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

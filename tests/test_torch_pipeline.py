@@ -125,15 +125,26 @@ def test_gfjs_from_arrays_round_trips_reference_summary():
 
 @pytest.mark.parametrize("knob", ["partitions", "message_cache"])
 def test_unported_knobs_refuse(knob):
-    """``partitions > 1`` still refuses, naming ROADMAP's queue; the
-    message cache, which refused the same way until the serving slice, is
-    ported and now runs (its parity tests: tests/test_torch_msgcache.py)."""
+    """The two knobs that refused until their slices were ported now run
+    and equal the reference: ``partitions`` (shards level for level and
+    the columns in shard order; the parity tests are
+    tests/test_torch_partition.py and tests/test_torch_actions.py) and the
+    message cache (tests/test_torch_msgcache.py).  The name is the one the
+    test had while both cases asserted the refusal."""
     from repro_torch.summary.msgcache import MessageCache
-    (_, _), (cat, q) = INSTANCES["figure1"]
+    (ref_cat, ref_q), (cat, q) = INSTANCES["figure1"]
     if knob == "partitions":
+        ref = RefGraphicalJoin(ref_cat, ref_q, partitions=2)
         gj = repro_torch.GraphicalJoin(cat, q, device="cpu", partitions=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gj.run()
+        got, want = gj.run(), ref.run()
+        assert gj.plan().partition_var == ref.plan().partition_var
+        assert got.shard_sizes() == want.shard_sizes()
+        for a, b in zip(got.shards, want.shards):
+            assert_gfjs_equal(a, b)
+        cols, ref_cols = gj.desummarize(got), ref.desummarize(want)
+        assert list(cols) == list(ref_cols)
+        for v in ref_cols:
+            np.testing.assert_array_equal(cols[v], ref_cols[v])
         return
     mc = MessageCache()
     cold = repro_torch.GraphicalJoin(cat, q, device="cpu").run()

@@ -193,11 +193,44 @@ def test_summary_package_exports_the_reference_names():
     assert SummaryCache is port_summary.SummaryCache
 
 
-def test_partitioned_service_refuses_by_name():
+def test_partitioned_service_refuses_by_name(tmp_path):
+    """Partitioned services, which refused until the partitioned slice,
+    now behave as the reference's: sharded replies, memory and disk hits
+    under a one-byte budget, and an append that rebuilds (never
+    ``"refreshed"``), with the same counts and keys.  The name is the one
+    the test had while it asserted the refusal."""
+    from repro_torch.core.gfjs import ShardedGFJS
+    ref_cat, ref_qs = ref_lastfm_like(**LASTFM)
     cat, qs = lastfm_like(**LASTFM)
-    svc = JoinService(cat, partitions=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="partitioned builds"):
-        svc.frame(qs["lastfm_A1"])
+    q1, q2 = "lastfm_A1", "lastfm_tri"
+    for d in ("ref", "port"):
+        (tmp_path / d).mkdir()
+    ref = RefService(ref_cat, partitions=3, spill_dir=str(tmp_path / "ref"),
+                     byte_budget=1)
+    svc = JoinService(cat, partitions=3, spill_dir=str(tmp_path / "port"),
+                      byte_budget=1, device="cpu")
+    seen = []
+    for q in (q1, q1, q2, q1):
+        r, p = ref.frame(ref_qs[q]), svc.frame(qs[q])
+        assert isinstance(p.frame.gfjs, ShardedGFJS)
+        for a, b in zip(p.frame.gfjs.shards, r.frame.gfjs.shards):
+            assert_gfjs_equal(a, b)
+        assert p.key == under_port_backends(ref_qs[q], r, p,
+                                            versions_of(cat, qs[q]))
+        seen.append((p.source, r.source, p.frame.count(), r.frame.count()))
+    assert [s[:2] for s in seen] == [("computed",) * 2, ("memory",) * 2,
+                                     ("computed",) * 2, ("disk",) * 2]
+    assert all(a == b for _, _, a, b in seen)
+    table = "user_friends"
+    rows = {c: cat[table][c][:5] for c in cat[table].column_names}
+    ref.append(table, rows)
+    svc.append(table, rows)
+    r, p = ref.frame(ref_qs[q1]), svc.frame(qs[q1])
+    assert p.source == r.source == "computed"      # rebuilt
+    assert svc.stats()["refreshed_requests"] == 0
+    assert p.frame.count() == r.frame.count()
+    assert_same(p.frame.group_by("U1", n="count"),
+                r.frame.group_by("U1", n="count"))
 
 
 def test_threads_hammering_one_service_agree():
