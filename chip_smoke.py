@@ -89,15 +89,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``invalidate`` frees the shards' memos.  Each prints its shard report,
    ``aux_nbytes`` and peak device bytes; the trace passes
    ``obs.check.validate(expect_shards=True)``;
-11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+11. the LM serving path on the card: (a) ``qwen3_8b`` at full width
+   (two layers, float32): prefill + stepwise decode logits equal the
+   teacher-forced ``forward``'s, in the grouped and the repeated KV
+   layouts, which agree; (b) the ``qwen3_8b`` and ``gemma3_4b`` smoke
+   models on the card against the same weights on the CPU (logits, and
+   8 greedy tokens equal); (c) the full Qwen3-8B (36 layers, bf16, random
+   weights drawn on the card from seed 0) serving 4 x 3,072-token prompts
+   (the online attention path) and 8 x 256 (the dense path), 32 new
+   tokens each, the prompts from ``JoinCorpus.build`` over lastfm_A1 on
+   the card through ``TokenBatcher(device="cuda")``, each request's
+   features from a ``RelationalFeatureProvider`` over a card
+   ``JoinService`` (equal to ``group_by`` on ``device="cpu"``): two greedy
+   runs equal, sampled runs with seeds 1 and 2 different; prefill seconds
+   and tokens/s, decode ms per step, each beside its bound, the card's
+   busy share of a decode loop and peak device bytes;
+12. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
 phase 5 (``expand_many``: the main path), zeroed again just before phase 6
 and read just after it (``mul_segsum``, ``run_boundaries``: the summary
 path), again around phase 7's path (``expand_gather``,
 ``dense_message``), around phase 9 (``expand_many``, ``mul_segsum``,
-``run_boundaries``: the serving path) and around phase 10 (the same
-three: the partitioned path).  ``--out`` writes the per-shape
+``run_boundaries``: the serving path), around phase 10 (the same
+three: the partitioned path) and around phase 11 (the same three: the
+LM serving path's corpus build and features).  ``--out`` writes the per-shape
 measurements as JSON.
 """
 
@@ -436,7 +452,12 @@ def busy_share(fn, dev, wall: float) -> dict:
     """The card's busy seconds over one profiled call of ``fn`` (kernels
     plus copies, from the Chrome trace) against the wall seconds of an
     unprofiled call of it."""
-    kern, copy, ours = device_seconds(fn, dev)
+    return busy_of(device_seconds(fn, dev), wall)
+
+
+def busy_of(seconds: tuple, wall: float) -> dict:
+    """``device_seconds``' (kernel s, copy s, ours) over ``wall``."""
+    kern, copy, ours = seconds
     if kern is None:
         return dict(kernels=None, copies=None, share=None)
     return dict(kernels=kern, copies=copy, our_launches=ours,
@@ -739,12 +760,9 @@ def same(got, want, what: str) -> None:
 OUR_KERNELS = ("segsum_pass", "boundaries_kernel", "expand_many_kernel")
 
 
-def device_seconds(fn, dev):
-    """(kernel s, copy s, launches of our kernels) that torch.profiler
-    records on the card over one call of ``fn``, read from its Chrome
-    trace: the kernels launched through ctypes belong to no PyTorch op,
-    so only the trace's CUPTI records (not ``prof.events()``) hold them.
-    (None, None, 0) where it records no device activity."""
+def profiled_events(fn, dev):
+    """The Chrome-trace events torch.profiler records over one call of
+    ``fn`` (None if the profiler fails: a measurement, not a check)."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile, record_function
     try:
@@ -757,9 +775,24 @@ def device_seconds(fn, dev):
         with tempfile.TemporaryDirectory() as tmp:
             path = Path(tmp) / "trace.json"
             prof.export_chrome_trace(str(path))
-            events = json.loads(path.read_text())["traceEvents"]
-    except RuntimeError as exc:      # a measurement, not a check
+            return json.loads(path.read_text())["traceEvents"]
+    except RuntimeError as exc:
         print(f"  torch.profiler failed: {exc}")
+        return None
+
+
+def device_seconds(fn, dev):
+    """(kernel s, copy s, launches of our kernels) that torch.profiler
+    records on the card over one call of ``fn``, read from its Chrome
+    trace: the kernels launched through ctypes belong to no PyTorch op,
+    so only the trace's CUPTI records (not ``prof.events()``) hold them.
+    (None, None, 0) where it records no device activity."""
+    return event_seconds(profiled_events(fn, dev))
+
+
+def event_seconds(events):
+    """``device_seconds`` of a profiled call's trace events."""
+    if events is None:
         return None, None, 0
     kern = copy = 0.0
     ours = 0
@@ -2184,6 +2217,343 @@ def run_partitioned(cat, queries, mono_a1, a2, answers, dev) -> dict:
     return out
 
 
+# -- phase 11: the LM serving path ------------------------------------------
+
+LM_ARCH = "qwen3_8b"
+LM_BATCHES = ((4, 3072), (8, 256))   # (requests, prompt tokens): the online
+                                     # attention path, then the dense one
+LM_NEW = 32                          # new tokens per request, greedy
+LM_PROFILED_STEPS = 8                # decode steps under the profiler
+LM_TOKENS_PER_ROW = 16
+BF16_FLOP_PER_S = 989e12             # H100 SXM data sheet, dense tensor cores
+# float32 logits: (a) decode against the teacher-forced forward at full
+# width (other reduction orders over d = 4096), (b) the card against the
+# CPU at smoke width; the KV layouts against each other
+LM_WIDTH_TOL = 1e-3
+LM_CARD_TOL = 1e-4
+LM_LAYOUT_TOL = 1e-5
+
+
+def lm_configs() -> dict:
+    """Phase 11's configurations: (a) the architecture at full width, two
+    layers, float32; (b) the smoke variants of qwen3_8b and gemma3_4b in
+    float32; (c) the full architecture (bf16, every layer)."""
+    from repro_torch.configs import get_config, get_smoke
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    full = get_config(LM_ARCH)
+    return dict(width=full.scaled(num_layers=2, **f32),
+                smoke=[get_smoke(a).scaled(**f32)
+                       for a in ("qwen3_8b", "gemma3_4b")],
+                full=full)
+
+
+def seeded_tokens(vocab: int, shape, seed: int, dev) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, shape)).to(dev)
+
+
+def set_kv_layout(lm, layout: str) -> None:
+    from repro_torch.models.attention import GQAttention
+    for m in lm.modules():
+        if isinstance(m, GQAttention):
+            m.kv_layout = layout
+
+
+def stepwise_logits(lm, toks, k: int) -> torch.Tensor:
+    """prefill toks[:, :k], then decode the rest one token at a time:
+    the logits at positions k-1 .. S-2, [B, S-k, V]."""
+    S = toks.shape[1]
+    logits, caches = lm.prefill(toks[:, :k], S)
+    out = [logits[:, 0]]
+    for t in range(k, S - 1):
+        logits, caches = lm.decode_step(toks[:, t:t + 1], caches)
+        out.append(logits[:, 0])
+    return torch.stack(out, 1)
+
+
+def lm_width_consistency(cfg, dev) -> dict:
+    """(a) prefill + stepwise decode equal the teacher-forced forward, at
+    full width on the card, in both KV layouts, which agree."""
+    from repro_torch.models.model import LM
+    lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    toks = seeded_tokens(cfg.vocab, (2, 16), 11, dev)
+    out: dict = {}
+    runs = {}
+    with torch.inference_mode():
+        for layout in ("grouped", "repeat"):
+            set_kv_layout(lm, layout)
+            full = lm(toks)
+            steps = stepwise_logits(lm, toks, 8)
+            want = full[:, 7:15]
+            err = float((steps - want).abs().max())
+            ok = torch.allclose(steps, want, atol=LM_WIDTH_TOL,
+                                rtol=LM_WIDTH_TOL)
+            check(ok, f"(a) {layout}: decode logits against the forward "
+                  f"differ by {err}")
+            out[f"decode_err_{layout}"] = err
+            runs[layout] = (full, steps)
+    out["layout_err"] = max(float((a - b).abs().max()) for a, b in
+                            zip(runs["grouped"], runs["repeat"]))
+    check(all(torch.allclose(a, b, atol=LM_LAYOUT_TOL, rtol=LM_LAYOUT_TOL)
+              for a, b in zip(runs["grouped"], runs["repeat"])),
+          f"(a) the KV layouts differ by {out['layout_err']}")
+    out["logit_max"] = float(runs["grouped"][0][..., :cfg.vocab].abs().max())
+    out["param_bytes"] = lm.param_bytes()
+    print(f"  (a) {cfg.name} at full width, {cfg.num_layers} layers, "
+          f"float32 ({out['param_bytes']} B): prefill + 7 decode steps "
+          f"against the forward, max |diff| grouped "
+          f"{out['decode_err_grouped']:.3g} / repeat "
+          f"{out['decode_err_repeat']:.3g} (tol {LM_WIDTH_TOL}, |logits| <= "
+          f"{out['logit_max']:.3g}); layouts agree to {out['layout_err']:.3g}"
+          f" (tol {LM_LAYOUT_TOL})")
+    return out
+
+
+def lm_card_against_cpu(cfgs, dev) -> dict:
+    """(b) the smoke models on the card against the same weights on the
+    CPU: logits to LM_CARD_TOL, 8 greedy tokens equal."""
+    from repro_torch.models.model import LM
+    from repro_torch.serve import ServeConfig, ServeEngine
+    out: dict = {}
+    for i, cfg in enumerate(cfgs):
+        cpu = LM(cfg, device="cpu",
+                 generator=torch.Generator().manual_seed(20 + i))
+        card = LM(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        toks = seeded_tokens(cfg.vocab, (3, 16), 21 + i, "cpu")
+        with torch.inference_mode():
+            want = cpu(toks)
+            got = card(toks.to(dev)).cpu()
+            want_s = stepwise_logits(cpu, toks, 8)
+            got_s = stepwise_logits(card, toks.to(dev), 8).cpu()
+        err = max(float((got - want).abs().max()),
+                  float((got_s - want_s).abs().max()))
+        check(torch.allclose(got, want, atol=LM_CARD_TOL, rtol=LM_CARD_TOL)
+              and torch.allclose(got_s, want_s, atol=LM_CARD_TOL,
+                                 rtol=LM_CARD_TOL),
+              f"(b) {cfg.name}: the card's logits differ from the CPU's by "
+              f"{err}")
+        scfg = ServeConfig(max_seq=24)
+        a = ServeEngine(cpu, scfg, device="cpu").generate(
+            {"tokens": toks}, 8)
+        b = ServeEngine(card, scfg, device=dev).generate({"tokens": toks}, 8)
+        check(np.array_equal(a, b), f"(b) {cfg.name}: greedy tokens differ "
+              f"between the card and the CPU")
+        out[cfg.name] = dict(max_err=err, tokens=b.tolist())
+        print(f"  (b) {cfg.name} float32: logits (forward, prefill, decode) "
+              f"on the card against the CPU, max |diff| {err:.3g} (tol "
+              f"{LM_CARD_TOL}); 8 greedy tokens equal: {b[0].tolist()}")
+    return out
+
+
+def timed_greedy(lm, tokens, s_max: int, new: int, dev):
+    """Greedy prefill + decode with the host clock around each part:
+    (tokens [B, new], prefill s, decode s per step)."""
+    with torch.inference_mode():
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(tokens, s_max)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        sync(dev)
+        t1 = time.perf_counter()
+        out = [tok]
+        for _ in range(new - 1):
+            logits, caches = lm.decode_step(tok, caches)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(tok)
+        sync(dev)
+        t2 = time.perf_counter()
+    return (torch.cat(out, 1).to(torch.int32).cpu().numpy(), t1 - t0,
+            (t2 - t1) / (new - 1))
+
+
+def kernel_seconds_by_name(events, top: int = 8) -> dict:
+    """The card's kernel seconds and launches in a profiled call's trace
+    events, by kernel name (its first 60 characters), the largest
+    ``top``."""
+    by: dict = {}
+    for e in events or ():
+        if e.get("cat") == "kernel":
+            s, n = by.get(e["name"][:60], (0.0, 0))
+            by[e["name"][:60]] = (s + e.get("dur", 0) / 1e6, n + 1)
+    return dict(sorted(by.items(), key=lambda kv: -kv[1][0])[:top])
+
+
+def lm_bounds(lm, B: int, S: int, new: int) -> dict:
+    """The least time the card could take for this run's prefill and its
+    decode steps (bf16 weights).  Bytes: each weight read once (the
+    embedding table: only the rows looked up), the KV cache written once
+    (prefill) or read up to the current position (decode), the logits
+    written once.  Operations: 2 per weight per token, the causal
+    attention's two products over the positions each query sees, and the
+    head only for the last position (as ``prefill`` computes it)."""
+    cfg = lm.cfg
+    elt = 2 if cfg.param_dtype == "bfloat16" else 4
+    d, L, H, KV, hd = (cfg.d_model, cfg.num_layers, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim_)
+    Vp = lm.vocab_padded
+    embed = lm.embed.numel()
+    weights = sum(p.numel() for p in lm.parameters()) - embed
+    mats = sum(p.numel() for n, p in lm.named_parameters()
+               if n.startswith("segments.") and p.dim() >= 2)
+    head = d * Vp
+    pre_bytes = (weights + B * S * d + 2 * L * B * KV * S * hd) * elt \
+        + B * Vp * 4
+    pre_ops = 2 * mats * B * S + 2 * H * hd * S * (S + 1) * B * L \
+        + 2 * head * B
+    pre = max(pre_bytes / HBM_BYTES_PER_S, pre_ops / BF16_FLOP_PER_S)
+    steps = []
+    for pos in range(S, S + new - 1):        # the cache holds pos + 1
+        b = (weights + B * d + 2 * L * B * KV * (pos + 1) * hd) * elt \
+            + B * Vp * 4
+        ops = 2 * (mats + head) * B + 4 * H * hd * (pos + 1) * B * L
+        steps.append(max(b / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S))
+    all_params = weights + embed
+    return dict(prefill_s=pre, prefill_bound_by="operations"
+                if pre_ops / BF16_FLOP_PER_S > pre_bytes / HBM_BYTES_PER_S
+                else "bytes", prefill_ops=pre_ops,
+                decode_step_s=sum(steps) / len(steps), decode_bound_by=
+                "bytes" if weights * elt / HBM_BYTES_PER_S
+                > 2 * (mats + head) * B / BF16_FLOP_PER_S else "operations",
+                coarse_decode_step_s=all_params * elt / HBM_BYTES_PER_S,
+                coarse_prefill_s=2 * all_params * B * S / BF16_FLOP_PER_S)
+
+
+def lm_serving(cat, query, cfg, dev) -> dict:
+    """(c) the full model serving join-fed prompts with join features."""
+    from repro_torch.core.gfjs import desummarize_range
+    from repro_torch.data import JoinCorpus, TokenBatcher
+    from repro_torch.models.model import LM
+    from repro_torch.serve import (RelationalFeatureProvider, ServeConfig,
+                                   ServeEngine, lookup_rows)
+    from repro_torch.summary import JoinService
+    from repro_torch.summary.algebra import SummaryFrame
+    out: dict = {}
+    corpus, t_corpus = timed(lambda: JoinCorpus.build(
+        cat, query, vocab=cfg.vocab, tokens_per_row=LM_TOKENS_PER_ROW,
+        device=dev), dev)
+    svc = JoinService(cat, device=dev)
+    prov = RelationalFeatureProvider(svc, query, key_var="U1",
+                                     aggs={"n_paths": "count"})
+    print(f"  (c) JoinCorpus over {query.name} on the card: "
+          f"{corpus.num_rows} rows in {t_corpus:.4f}s, "
+          f"{LM_TOKENS_PER_ROW} tokens per row, vocab {cfg.vocab}")
+
+    reset_peak(dev)
+    lm, t_build = timed(lambda: LM(
+        cfg, device=dev, generator=torch.Generator(dev).manual_seed(0)), dev)
+    out["param_bytes"] = lm.param_bytes()
+    out["params"] = sum(p.numel() for p in lm.parameters())
+    print(f"  (c) {cfg.name}: {cfg.num_layers} layers, {out['params']} "
+          f"parameters, {out['param_bytes']} B in {cfg.param_dtype}, built "
+          f"and drawn on the card in {t_build:.3f}s")
+    cursor = 0
+    table = None            # GROUP BY U1 on device="cpu", the oracle
+    for B, S in LM_BATCHES:
+        row = {"requests": B, "prompt": S, "new": LM_NEW}
+        batcher = TokenBatcher(corpus, B, S, cursor=cursor, device=dev)
+        batch = batcher.next_batch()
+        check(batch["tokens"].is_cuda == (dev.type == "cuda")
+              and batch["tokens"].dtype == torch.int32
+              and tuple(batch["tokens"].shape) == (B, S),
+              "TokenBatcher's tokens: int32 [B, S] on the device")
+        # each request's user: U1 of the first join row its prompt came from
+        rows = [cursor + i * (S + 1) // LM_TOKENS_PER_ROW for i in range(B)]
+        keys = np.concatenate([desummarize_range(
+            corpus.gfjs, r, r + 1, decode=True)["U1"] for r in rows])
+        cursor = batcher.cursor
+        engine = ServeEngine(lm, ServeConfig(max_seq=S + LM_NEW),
+                             feature_provider=prov, device=dev)
+        batch, t_feat = timed(lambda: engine.attach_features(batch, keys),
+                              dev)
+        feats = batch["features"].cpu().numpy()
+        if table is None:
+            table = SummaryFrame.of(svc.frame(query).frame.gfjs,
+                                    device="cpu").group_by(
+                ["U1"], n_paths="count")
+        want = lookup_rows(table, "U1", ["n_paths"], keys)
+        check(np.array_equal(feats, want), "(c) the provider's features "
+              "differ from group_by on device='cpu'")
+        check((feats > 0).all(), "(c) a prompt's user has no join rows")
+        row.update(features=feats[:, 0].tolist(), feature_s=t_feat,
+                   users=keys.tolist())
+        # the two greedy runs warm the card up for the timed third
+        greedy = [engine.generate(batch, LM_NEW, seed=s) for s in (1, 2)]
+        got, pre_s, step_s = timed_greedy(lm, batch["tokens"], S + LM_NEW,
+                                          LM_NEW, dev)
+        check(np.array_equal(got, greedy[0])
+              and np.array_equal(greedy[0], greedy[1]),
+              f"(c) {B} x {S}: greedy runs disagree")
+        check(greedy[0].shape == (B, LM_NEW) and (greedy[0] >= 0).all()
+              and (greedy[0] < cfg.vocab).all(),
+              f"(c) {B} x {S}: tokens outside [0, vocab)")
+        hot = ServeEngine(lm, ServeConfig(max_seq=S + LM_NEW,
+                                          temperature=1.0), device=dev)
+        sampled = [hot.generate(batch, LM_NEW, seed=s) for s in (1, 2)]
+        check(not np.array_equal(sampled[0], sampled[1]),
+              f"(c) {B} x {S}: sampled runs with seeds 1 and 2 agree")
+        bound = lm_bounds(lm, B, S, LM_NEW)
+        row.update(prefill_s=pre_s, decode_step_s=step_s,
+                   prefill_tokens_per_s=B * S / pre_s,
+                   decode_tokens_per_s=B / step_s, bound=bound,
+                   greedy=greedy[0][:, :8].tolist())
+
+        # the card's busy share of a decode loop
+        with torch.inference_mode():
+            # room for two loops: timed, then profiled
+            logits, caches = lm.prefill(batch["tokens"],
+                                        S + 2 * LM_PROFILED_STEPS + 1)
+            first = logits[:, -1].argmax(-1, keepdim=True)
+
+            def loop():
+                tok = first
+                for _ in range(LM_PROFILED_STEPS):
+                    lg, _ = lm.decode_step(tok, caches)
+                    tok = lg[:, -1].argmax(-1, keepdim=True)
+            _, wall = timed(loop, dev)
+            events = profiled_events(loop, dev)
+            row["busy"] = busy_of(event_seconds(events), wall)
+            row["decode_kernels"] = kernel_seconds_by_name(events)
+        print(f"  (c) {B} x {S} prompts (+{LM_NEW} tokens): features "
+              f"{row['features']} for users {row['users']} in {t_feat:.4f}s,"
+              f" equal to group_by on the CPU; prefill {pre_s:.4f}s, "
+              f"{B * S / pre_s:.1f} tokens/s, "
+              f"bound {bound['prefill_s']:.4f}s by "
+              f"{bound['prefill_bound_by']} (2 x all parameters x tokens / "
+              f"bf16 peak: {bound['coarse_prefill_s']:.4f}s); decode "
+              f"{step_s * 1e3:.3f} ms/step, {B / step_s:.1f} tokens/s, bound "
+              f"{bound['decode_step_s'] * 1e3:.3f} ms by "
+              f"{bound['decode_bound_by']} (all parameter bytes / HBM: "
+              f"{bound['coarse_decode_step_s'] * 1e3:.3f} ms); decode loop "
+              f"{fmt_busy(row['busy'])}; greedy twice equal, sampled seeds "
+              f"1 / 2 differ")
+        print(f"      the decode loop's card time by kernel ("
+              f"{LM_PROFILED_STEPS} steps, s): "
+              + ", ".join(f"{k} {v[0]:.6f} x{v[1]}" for k, v in
+                          row["decode_kernels"].items()))
+        out[f"{B}x{S}"] = row
+        del batch, caches, logits
+    out["peak_device_bytes"] = peak_bytes(dev)
+    print(f"  (c) peak device bytes {out['peak_device_bytes']} (parameters "
+          f"{out['param_bytes']})")
+    del lm
+    return out
+
+
+def run_lm_serving(cat, queries, dev) -> dict:
+    """Phase 11: the LM serving path on the card."""
+    cfgs = lm_configs()
+    t0 = time.perf_counter()
+    out = dict(width=lm_width_consistency(cfgs["width"], dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["smoke"] = lm_card_against_cpu(cfgs["smoke"], dev)
+    out["full"] = lm_serving(cat, queries["lastfm_A1"], cfgs["full"], dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the per-shape measurements "
@@ -2214,7 +2584,7 @@ def main() -> int:
 
 
 def smoke(dev, lastfm_kw, out_path, header) -> list:
-    """Phases 3-10 on ``dev``; returns the kernels line's entries.  (The
+    """Phases 3-11 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
     from repro_torch.kernels.dense_message import dense_message
@@ -2380,6 +2750,21 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     print(f"partitioned path: launches {partitioned['launches']}, numpy "
           f"fallbacks=0")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    expand_many.launches = mul_segsum.launches = 0
+    run_boundaries.launches = 0
+    fb5 = fallbacks.value
+    print("the LM serving path:")
+    lm = run_lm_serving(cat, queries, dev)
+    lm["launches"] = {"expand_many": expand_many.launches,
+                      "mul_segsum": mul_segsum.launches,
+                      "run_boundaries": run_boundaries.launches}
+    for name, n in lm["launches"].items():
+        check(n > 0, f"the LM serving path launched no {name} kernel")
+    check(fallbacks.value == fb5, "numpy fallbacks on the LM serving path")
+    print(f"LM serving path: launches {lm['launches']}, numpy fallbacks=0")
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -2390,7 +2775,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             summary_launches=summary_launches, dense=dense,
             message_shapes=message_rows, message_launches=message_launches,
             thin_launches=thin_launches, k_sweep=k_sweep, rates=rates,
-            service=service, partitioned=partitioned,
+            service=service, partitioned=partitioned, lm_serving=lm,
             previous_ms={"/".join(map(str, k)): v
                          for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(

@@ -10,13 +10,17 @@ so the same data can go through both packages.
                              for lvl in ref_gfjs.levels],
                             ref_gfjs.column_order, ref_gfjs.join_size,
                             {v: d.values for v, d in ref_gfjs.domains.items()})
+    lm.load_state_dict(lm_state_dict_from_arrays(
+        cfg, {k: np.asarray(v, np.float32) for k, v in ref_params.items()}))
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.gfjs import GFJS, LevelSummary
 from repro_torch.core.potentials import INT
@@ -57,3 +61,84 @@ def gfjs_from_arrays(
     domains: Dict[str, Domain] = {v: Domain(v, np.asarray(vals))
                                   for v, vals in domain_values.items()}
     return GFJS(out, list(column_order), int(join_size), domains)
+
+
+# -- LM parameters -----------------------------------------------------------
+#
+# The reference keeps an LM's parameters in one flat dict, each stack's
+# stacked on a leading axis; the port keeps one module per layer.  The
+# name map, port state-dict key -> (reference key, index into it):
+#
+#   embed | head | final_norm              -> the same name, ()
+#   segments.<s>.<i>.loc.<j>.<rest>         -> <s>.loc.b.<rest>, (i, j)
+#                                              (a GemmaUnit's local layers)
+#   segments.<s>.<i>.g.<rest>               -> <s>.g.<rest>, (i,)
+#                                              (a GemmaUnit's global layer)
+#   segments.<s>.<i>.<rest>                 -> <s>.b.<rest>, (i,)
+#                                              (a stack of blocks)
+#
+# e.g. ``blocks.b.attn.wq`` [L, d, H, hd] holds layer i's
+# ``segments.blocks.<i>.attn.wq`` [d, H, hd].  bf16 travels as float32
+# numpy, which holds every bf16 value exactly.
+
+_SEG = re.compile(r"segments\.(\w+)\.(\d+)\.(.*)")
+_LOC = re.compile(r"loc\.(\d+)\.(.*)")
+
+
+def lm_reference_name(key: str) -> Tuple[str, Tuple[int, ...]]:
+    """A port state-dict key -> (reference key, index into it)."""
+    m = _SEG.fullmatch(key)
+    if m is None:
+        return key, ()
+    seg, i, rest = m[1], int(m[2]), m[3]
+    loc = _LOC.fullmatch(rest)
+    if loc is not None:
+        return f"{seg}.loc.b.{loc[2]}", (i, int(loc[1]))
+    if rest.startswith("g."):
+        return f"{seg}.{rest}", (i,)
+    return f"{seg}.b.{rest}", (i,)
+
+
+def lm_state_dict_from_arrays(cfg, params: Mapping[str, np.ndarray]
+                              ) -> Dict[str, torch.Tensor]:
+    """The reference's flat LM parameters (numpy) -> the port's
+    ``LM(cfg)`` state dict, on the CPU in ``cfg.param_dtype``."""
+    from repro_torch.models.model import LM
+    out: Dict[str, torch.Tensor] = {}
+    used = set()
+    for key, meta in LM(cfg, device="meta").state_dict().items():
+        ref, idx = lm_reference_name(key)
+        if ref not in params:
+            raise KeyError(f"{key}: no reference parameter {ref!r}")
+        a = np.asarray(params[ref], dtype=np.float32)[idx]
+        if a.shape != tuple(meta.shape):
+            raise ValueError(f"{ref}{list(idx)}: shape {a.shape}, the port's "
+                             f"{key} is {tuple(meta.shape)}")
+        out[key] = torch.tensor(a).to(meta.dtype)
+        used.add(ref)
+    if set(params) - used:
+        raise ValueError(f"reference parameters the port has no place for: "
+                         f"{sorted(set(params) - used)}")
+    return out
+
+
+def lm_arrays_from_state_dict(state: Mapping[str, torch.Tensor]
+                              ) -> Dict[str, np.ndarray]:
+    """The inverse: the port's state dict -> the reference's flat dict of
+    float32 numpy arrays, stacks on their leading axes."""
+    parts: Dict[str, Dict[Tuple[int, ...], np.ndarray]] = {}
+    for key, t in state.items():
+        ref, idx = lm_reference_name(key)
+        parts.setdefault(ref, {})[idx] = t.detach().float().cpu().numpy()
+    out: Dict[str, np.ndarray] = {}
+    for ref, by_idx in parts.items():
+        if () in by_idx:
+            out[ref] = by_idx[()]
+            continue
+        lead = tuple(np.max(list(by_idx), axis=0) + 1)
+        first = next(iter(by_idx.values()))
+        arr = np.empty(lead + first.shape, np.float32)
+        for idx, a in by_idx.items():
+            arr[idx] = a
+        out[ref] = arr
+    return out

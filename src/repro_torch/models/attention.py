@@ -1,0 +1,199 @@
+"""Grouped-query attention (covers MHA), sliding window, qk-norm and logit
+softcap, with the three entry modes of the reference
+(``repro/models/attention.py``) on one code path:
+
+* ``forward``  -- full-sequence forward;
+* ``prefill``  -- forward that also fills the KV cache;
+* ``decode``   -- one new token against the cache.
+
+The cache is heads-major, ``[B, KV, S_max, hd]`` (the reference's is
+``[B, S_max, KV, hd]``), so each step's score and value products read
+the cache in place as ``[B*KV, S, hd]`` matrices instead of copying it
+into that shape.  The reference's ``kv_layout = "repeat"`` copies K/V to
+all H heads only to suit a tensor-parallel mesh; the port's default,
+``"grouped"``, folds the G query heads of each KV head into the rows of
+one product and is numerically the same (the tests hold the two equal).
+
+``MLAttention`` (DeepSeek-V2) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from repro_torch.models import flash
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, declare, dtype_of, rms_norm
+
+WAITS = ("is not ported yet (ROADMAP.md queue 1 item 7: the LM, training "
+         "and serving stack; the port has the dense family)")
+
+
+@dataclass
+class KVCache:
+    """One layer's cache, updated in place by ``prefill`` and ``decode``."""
+
+    k: torch.Tensor   # [B, KV, S_max, hd]
+    v: torch.Tensor   # [B, KV, S_max, hd]
+    pos: int = 0      # filled length, one scalar for the whole batch
+
+
+# ---------------------------------------------------------------------------
+# masks
+# ---------------------------------------------------------------------------
+
+def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+              window: int = 0) -> torch.Tensor:
+    """[q, k] boolean mask. window > 0 => sliding-window attention."""
+    m = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        m &= k_pos[None, :] > (q_pos[:, None] - window)
+    return m
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+class GQAttention(nn.Module):
+    # "grouped" (the port's) or "repeat" (the reference's, K/V copied to
+    # every query head); numerically the same
+    kv_layout = "grouped"
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
+        super().__init__()
+        self.cfg = cfg
+        d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim_)
+        dt = dtype_of(cfg.param_dtype)
+        declare(self, "wq", (d, H, hd), dt, device, d ** -0.5)
+        declare(self, "wk", (d, KV, hd), dt, device, d ** -0.5)
+        declare(self, "wv", (d, KV, hd), dt, device, d ** -0.5)
+        declare(self, "wo", (H, hd, d), dt, device, (H * hd) ** -0.5)
+        if cfg.qk_norm:
+            declare(self, "q_norm", (hd,), dt, device, None)
+            declare(self, "k_norm", (hd,), dt, device, None)
+
+    # -- projections --------------------------------------------------------
+    @staticmethod
+    def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """einsum("bsd,dhk->bshk") as one matrix product."""
+        return (x @ w.reshape(w.shape[0], -1).to(x.dtype)).unflatten(
+            -1, w.shape[1:])
+
+    def _qkv(self, x, positions):
+        cfg = self.cfg
+        q = self._proj(x, self.wq)
+        k = self._proj(x, self.wk)
+        v = self._proj(x, self.wv)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.q_norm, cfg.norm_eps)
+            k = rms_norm(k, self.k_norm, cfg.norm_eps)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
+
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        """einsum("bqhk,hkd->bqd") over [B, Sq, H*hd]."""
+        wo = self.wo
+        return out @ wo.reshape(-1, wo.shape[-1]).to(out.dtype)
+
+    def _attend(self, q, k, v, mask):
+        """q: [B,Sq,H,hd]; k/v: [B,KV,Sk,hd]; mask: [Sq|1, Sk] or None."""
+        cfg = self.cfg
+        B, Sq, H, hd = q.shape
+        KV = k.shape[1]
+        if self.kv_layout == "repeat" and KV != H:
+            k = k.repeat_interleave(H // KV, dim=1)
+            v = v.repeat_interleave(H // KV, dim=1)
+            KV = H
+        G = H // KV
+        # [B,Sq,KV,G,hd] -> [B,KV,G*Sq,hd]: the G heads of a KV head are
+        # rows of one product against that head's keys
+        qg = q.reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4).reshape(
+            B, KV, G * Sq, hd)
+        scores = (qg @ k.transpose(-1, -2)).float()       # [B,KV,G*Sq,Sk]
+        scores = scores.view(B, KV, G, Sq, -1)
+        scores *= hd ** -0.5
+        if cfg.attn_logit_softcap > 0:
+            c = cfg.attn_logit_softcap
+            scores = c * torch.tanh(scores / c)
+        if mask is not None:
+            scores = torch.where(mask, scores, -1e30)
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = w.view(B, KV, G * Sq, -1) @ v               # [B,KV,G*Sq,hd]
+        out = out.view(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4)
+        return self._out(out.reshape(B, Sq, H * hd))
+
+    def _attend_seq(self, q, k, v, *, causal: bool, window: int):
+        """Full-sequence attention (k/v: [B,Sk,KV,hd]); long contexts go
+        through the online-softmax chunked path, as in the reference."""
+        cfg = self.cfg
+        B, Sq, H, hd = q.shape
+        if flash.should_chunk(Sq, k.shape[1]):
+            KV = k.shape[2]
+            if self.kv_layout == "repeat" and KV != H:
+                k = k.repeat_interleave(H // KV, dim=2)
+                v = v.repeat_interleave(H // KV, dim=2)
+                KV = H
+            out = flash.online_attention(
+                q.reshape(B, Sq, KV, H // KV, hd), k, v, causal=causal,
+                window=window, softcap=cfg.attn_logit_softcap)
+            return self._out(out.reshape(B, Sq, H * hd))
+        pos = torch.arange(Sq, device=q.device)
+        mask = attn_mask(pos, pos, causal=causal, window=window)
+        return self._attend(q, k.transpose(1, 2), v.transpose(1, 2), mask)
+
+    # -- entry points --------------------------------------------------------
+    def forward(self, x, positions, *, window: int = 0) -> torch.Tensor:
+        q, k, v = self._qkv(x, positions)
+        return self._attend_seq(q, k, v, causal=self.cfg.causal,
+                                window=window)
+
+    def init_cache(self, batch: int, s_max: int) -> KVCache:
+        cfg = self.cfg
+        shape = (batch, cfg.num_kv_heads, s_max, cfg.head_dim_)
+        kw = dict(dtype=dtype_of(cfg.compute_dtype), device=self.wq.device)
+        return KVCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw), 0)
+
+    def prefill(self, x, positions, cache: KVCache, *, window: int = 0):
+        q, k, v = self._qkv(x, positions)
+        S = x.shape[1]
+        cache.k[:, :, :S] = k.transpose(1, 2)
+        cache.v[:, :, :S] = v.transpose(1, 2)
+        cache.pos = S
+        out = self._attend_seq(q, k, v, causal=self.cfg.causal,
+                               window=window)
+        return out, cache
+
+    def decode(self, x, cache: KVCache, *, window: int = 0):
+        """x: [B, 1, d]; attends over cache[:pos] + the new token."""
+        pos = cache.pos
+        s_max = cache.k.shape[2]
+        if pos >= s_max:
+            raise ValueError(f"KV cache full: {s_max} positions")
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
+                               device=x.device)
+        q, k, v = self._qkv(x, positions)
+        cache.k[:, :, pos] = k[:, 0]
+        cache.v[:, :, pos] = v[:, 0]
+        k_pos = torch.arange(s_max, device=x.device)
+        valid = k_pos <= pos
+        if window > 0:
+            valid &= k_pos > pos - window
+        out = self._attend(q, cache.k, cache.v, valid[None, :])
+        cache.pos = pos + 1
+        return out, cache
+
+
+class MLAttention(nn.Module):
+    """DeepSeek-V2 multi-head latent attention: waits for the MoE slice."""
+
+    def __init__(self, cfg: ModelConfig, **_) -> None:
+        raise NotImplementedError(f"MLAttention ({cfg.name}) {WAITS}")

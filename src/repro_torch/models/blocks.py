@@ -1,0 +1,145 @@
+"""Layer blocks and the layer stack.
+
+The reference (``repro/models/blocks.py``) stacks the parameters of n
+identical blocks on a leading axis and applies them with ``lax.scan``,
+so that XLA compiles one block body per group.  Eager PyTorch has no
+compile to keep small, so :class:`ScanStack` is a ``ModuleList`` of n
+blocks applied in a Python loop, and its cache is a list of per-layer
+caches updated in place.  ``repro_torch.interop`` maps the reference's
+stacked ``[n, ...]`` parameters onto the stack's layers.
+
+``MoEBlock``, ``Mamba2Layer`` and ``XLSTMLayer`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models.attention import (WAITS, GQAttention, KVCache,
+                                         MLAttention)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (activation_fn, declare, dtype_of,
+                                      rms_norm)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device: torch.device,
+                 d_ff: Optional[int] = None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        ff = d_ff or cfg.d_ff
+        dt = dtype_of(cfg.param_dtype)
+        if cfg.gated_mlp:
+            declare(self, "w_gate", (d, ff), dt, device, d ** -0.5)
+        declare(self, "w_up", (d, ff), dt, device, d ** -0.5)
+        declare(self, "w_down", (ff, d), dt, device, ff ** -0.5)
+        self.act = activation_fn(cfg.activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        u = x @ self.w_up.to(x.dtype)
+        if self.cfg.gated_mlp:
+            h = self.act(x @ self.w_gate.to(x.dtype)) * u
+        else:
+            h = self.act(u)
+        return h @ self.w_down.to(x.dtype)
+
+
+class MoEBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, **_) -> None:
+        raise NotImplementedError(f"MoEBlock ({cfg.name}) {WAITS}")
+
+
+# ---------------------------------------------------------------------------
+# standard pre-norm transformer block (attention + MLP)
+# ---------------------------------------------------------------------------
+
+class TransformerBlock(nn.Module):
+    """Pre-norm block.  Variants: qk-norm, sliding window, softcap.  (An
+    MLA config raises here; the MoE FFN waits with ``MoEBlock``.)"""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device,
+                 window: int = 0) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.window = window
+        dt = dtype_of(cfg.param_dtype)
+        declare(self, "ln1", (cfg.d_model,), dt, device, None)
+        declare(self, "ln2", (cfg.d_model,), dt, device, None)
+        if cfg.mla is not None:
+            self.attn = MLAttention(cfg)
+        else:
+            self.attn = GQAttention(cfg, device=device)
+        self.mlp = MLP(cfg, device=device)
+
+    def forward(self, x, positions):
+        cfg = self.cfg
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        x = x + self.attn(h, positions, window=self.window)
+        h = rms_norm(x, self.ln2, cfg.norm_eps)
+        return x + self.mlp(h)
+
+    def init_cache(self, batch: int, s_max: int) -> KVCache:
+        return self.attn.init_cache(batch, s_max)
+
+    def prefill(self, x, positions, cache: KVCache):
+        cfg = self.cfg
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        a, cache = self.attn.prefill(h, positions, cache, window=self.window)
+        x = x + a
+        h = rms_norm(x, self.ln2, cfg.norm_eps)
+        return x + self.mlp(h), cache
+
+    def decode(self, x, cache: KVCache):
+        cfg = self.cfg
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        a, cache = self.attn.decode(h, cache, window=self.window)
+        x = x + a
+        h = rms_norm(x, self.ln2, cfg.norm_eps)
+        return x + self.mlp(h), cache
+
+
+class Mamba2Layer(nn.Module):
+    def __init__(self, cfg: ModelConfig, **_) -> None:
+        raise NotImplementedError(f"Mamba2Layer ({cfg.name}) {WAITS}")
+
+
+class XLSTMLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, **_) -> None:
+        raise NotImplementedError(f"XLSTMLayer ({cfg.name}) {WAITS}")
+
+
+# ---------------------------------------------------------------------------
+# ScanStack
+# ---------------------------------------------------------------------------
+
+class ScanStack(nn.ModuleList):
+    """n structurally identical blocks applied in order."""
+
+    def __init__(self, n: int, make_block: Callable[[], nn.Module]) -> None:
+        super().__init__(make_block() for _ in range(n))
+
+    def forward(self, x, positions):
+        for block in self:
+            x = block(x, positions)
+        return x
+
+    def init_cache(self, batch: int, s_max: int) -> List:
+        return [block.init_cache(batch, s_max) for block in self]
+
+    def prefill(self, x, positions, caches: List):
+        for block, cache in zip(self, caches):
+            x, _ = block.prefill(x, positions, cache)
+        return x, caches
+
+    def decode(self, x, caches: List):
+        for block, cache in zip(self, caches):
+            x, _ = block.decode(x, cache)
+        return x, caches

@@ -1,11 +1,8 @@
-"""Serving layer: the Graphical-Join serving front-end (``server.py``).
+"""Serving layer: the LM engine (``engine.py``) and the Graphical-Join
+serving front-end (``server.py``).
 
-The reference's package also re-exports its LM engine
-(``repro/serve/engine.py``: ``ServeEngine``, ``ServeConfig``,
-``make_serve_step``, ``RelationalFeatureProvider``).  That engine is not
-ported yet (ROADMAP.md queue 1, the LM, training and serving stack), so
-asking for those names raises :class:`AttributeError` naming that item.
-Re-exports resolve lazily (PEP 562), as in the reference.
+Submodule re-exports resolve lazily (PEP 562), as in the reference:
+consumers of the :class:`JoinServer` alone never import the models.
 """
 
 _ENGINE = {"RelationalFeatureProvider", "ServeConfig", "ServeEngine",
@@ -13,15 +10,14 @@ _ENGINE = {"RelationalFeatureProvider", "ServeConfig", "ServeEngine",
 _SERVER = {"AdmissionRejected", "DeadlineExceeded", "JoinServer",
            "SingleFlight", "lookup_rows"}
 
-__all__ = sorted(_SERVER)
+__all__ = sorted(_ENGINE | _SERVER)
 
 
 def __getattr__(name):
     import importlib
     if name in _ENGINE:
-        raise AttributeError(
-            f"{name!r} belongs to the LM serving engine, which is not ported "
-            "yet (ROADMAP.md queue 1: LM, training and serving stack)")
+        return getattr(importlib.import_module("repro_torch.serve.engine"),
+                       name)
     if name in _SERVER:
         return getattr(importlib.import_module("repro_torch.serve.server"),
                        name)

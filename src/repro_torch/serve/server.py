@@ -51,8 +51,7 @@ the process registry under ``server.*``.
 
 Port of ``src/repro/serve/server.py``: only the imports differ.  It
 sits in front of the port's service, whose frames answer on the service's
-device; the LM engine (the reference's ``serve/engine.py``) is not ported
-yet (ROADMAP.md queue 1).
+device; the LM engine lives in ``serve/engine.py``.
 """
 
 from __future__ import annotations

@@ -822,3 +822,143 @@ def test_partitioned_service_invalidate_frees_the_shards_memos():
     gc.collect()
     torch.cuda.synchronize(dev)
     assert held - torch.cuda.memory_allocated(dev) >= aux
+
+
+# -- the LM serving path (the dense family) ----------------------------------
+
+def _cpu_and_card_lm(arch, dev, **extra):
+    """The smoke model in float32 on the CPU, and on the card with the
+    same weights (one state dict)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import LM
+    kw = dict(param_dtype="float32", compute_dtype="float32", **extra)
+    cfg = get_smoke(arch).scaled(**kw)
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = LM(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.parametrize("arch", ["qwen3_8b", "gemma3_4b"])
+def test_lm_on_the_card_matches_the_cpu(arch):
+    """Smoke phase 11 (b) at smoke size: forward, prefill and decode
+    logits to 1e-4, and 8 greedy tokens equal."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    dev = _card()
+    cpu, card = _cpu_and_card_lm(arch, dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cpu.cfg.vocab, (3, 16)))
+    with torch.inference_mode():
+        np.testing.assert_allclose(card(toks.to(dev)).cpu().numpy(),
+                                   cpu(toks).numpy(), atol=1e-4, rtol=1e-4)
+        lc, cc = cpu.prefill(toks[:, :8], 16)
+        lg, cg = card.prefill(toks[:, :8].to(dev), 16)
+        for t in range(8, 12):
+            np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(),
+                                       atol=1e-4, rtol=1e-4)
+            lc, cc = cpu.decode_step(toks[:, t:t + 1], cc)
+            lg, cg = card.decode_step(toks[:, t:t + 1].to(dev), cg)
+    want = ServeEngine(cpu, ServeConfig(max_seq=24), device="cpu").generate(
+        {"tokens": toks}, 8)
+    got = ServeEngine(card, ServeConfig(max_seq=24), device=dev).generate(
+        {"tokens": toks}, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_prefill_decode_matches_forward_on_the_card():
+    """Smoke phase 11 (a) at smoke size: stepwise decode logits equal the
+    teacher-forced forward's, in both KV layouts, which agree."""
+    from repro_torch.models.attention import GQAttention
+    dev = _card()
+    _, lm = _cpu_and_card_lm("qwen3_8b", dev, num_kv_heads=2)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, lm.cfg.vocab, (2, 16))).to(dev)
+    runs = {}
+    with torch.inference_mode():
+        for layout in ("grouped", "repeat"):
+            for m in lm.modules():
+                if isinstance(m, GQAttention):
+                    m.kv_layout = layout
+            full = lm(toks)
+            logits, caches = lm.prefill(toks[:, :8], 16)
+            steps = [logits[:, 0]]
+            for t in range(8, 15):
+                logits, caches = lm.decode_step(toks[:, t:t + 1], caches)
+                steps.append(logits[:, 0])
+            got = torch.stack(steps, 1)
+            torch.testing.assert_close(got, full[:, 7:15], atol=1e-4,
+                                       rtol=1e-4)
+            runs[layout] = (full, got)
+    for a, b in zip(runs["grouped"], runs["repeat"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def test_lm_is_built_on_the_card():
+    """Every parameter is allocated and drawn on the card: a host
+    generator is refused, and a meta build initialised on the card equals
+    a direct card build."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import LM
+    dev = _card()
+    cfg = get_smoke("gemma3_4b")
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(3))
+    torch.cuda.synchronize(dev)
+    assert all(p.is_cuda for p in lm.parameters())
+    assert torch.cuda.memory_allocated(dev) - before >= lm.param_bytes()
+    with pytest.raises(RuntimeError):
+        LM(cfg, device=dev, generator=torch.Generator().manual_seed(3))
+    lazy = LM(cfg, device="meta").to_empty(device=dev)
+    lazy.init_weights(torch.Generator(dev).manual_seed(3))
+    for (k, a), (_, b) in zip(lm.state_dict().items(),
+                              lazy.state_dict().items()):
+        assert torch.equal(a, b), k
+
+
+def test_serve_engine_without_a_card_raises(monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import LM
+    from repro_torch.serve import ServeConfig, ServeEngine
+    _card()
+    cpu = LM(get_smoke("qwen3_8b"), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cpu, ServeConfig(max_seq=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(get_smoke("qwen3_8b"))
+
+
+def test_join_fed_serving_on_the_card_equals_the_cpu():
+    """JoinCorpus built on the card, batches as int32 on the card equal
+    to the CPU's, and features from a card service equal the CPU's."""
+    from repro_torch.data import JoinCorpus, TokenBatcher
+    from repro_torch.serve import (RelationalFeatureProvider, ServeConfig,
+                                   ServeEngine)
+    from repro_torch.summary import JoinService
+    dev = _card()
+    cat, qs = lastfm_like(**SERVE_LASTFM)
+    q = qs["lastfm_A1"]
+    cpu_c = JoinCorpus.build(cat, q, vocab=256, device="cpu")
+    card_c = JoinCorpus.build(cat, q, vocab=256, device=dev)
+    a = TokenBatcher(cpu_c, 4, 63, device="cpu")
+    b = TokenBatcher(card_c, 4, 63, device=dev)
+    for _ in range(3):
+        want, got = a.next_batch(), b.next_batch()
+        assert got["tokens"].is_cuda and got["tokens"].dtype == torch.int32
+        assert torch.equal(got["tokens"].cpu(), want["tokens"])
+        assert torch.equal(got["labels"].cpu(), want["labels"])
+    keys = np.arange(0, 320, 7)
+    aggs = {"n_paths": "count"}
+    on_card = RelationalFeatureProvider(JoinService(cat, device=dev), q,
+                                        key_var="U1", aggs=aggs)
+    on_cpu = RelationalFeatureProvider(JoinService(cat, device="cpu"), q,
+                                       key_var="U1", aggs=aggs)
+    np.testing.assert_array_equal(on_card.features(keys),
+                                  on_cpu.features(keys))
+    _, lm = _cpu_and_card_lm("qwen3_8b", dev)
+    eng = ServeEngine(lm, ServeConfig(max_seq=72), feature_provider=on_card,
+                      device=dev)
+    batch = eng.attach_features(b.next_batch(), keys[:4])
+    assert batch["features"].is_cuda
+    assert eng.generate(batch, 8).shape == (4, 8)

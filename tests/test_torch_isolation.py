@@ -4,10 +4,14 @@ A child process with ``jax`` and ``repro`` blocked imports ``repro_torch``
 and runs Figure 1 on the CPU, desummarizes it and aggregates from it, then
 calls ``ops.dense_message`` and ``ops.rle_expand``, answers a COUNT
 through a ``JoinServer`` in front of a ``JoinService``, and runs a
-``partitions=2`` build; a source scan finds no jax or ``repro`` import
-under ``src/repro_torch/`` (the serving and partitioning modules
-included) or in ``chip_smoke.py``; and a ``cuda`` entry point without a
-card raises instead of running on the CPU.
+``partitions=2`` build, then builds a smoke ``LM``, takes one
+``TokenBatcher`` batch from a ``JoinCorpus`` over Figure 1, and serves it
+greedily through a ``ServeEngine`` with features from a
+``RelationalFeatureProvider`` over a Figure-1 ``JoinService``; a source
+scan finds no jax or ``repro`` import under ``src/repro_torch/`` (the
+serving, partitioning, model and data modules included) or in
+``chip_smoke.py``; and a ``cuda`` entry point without a card raises
+instead of running on the CPU.
 """
 
 import os
@@ -21,10 +25,14 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import get_smoke
 from repro_torch.core import engine
+from repro_torch.data import JoinCorpus, TokenBatcher
 from repro_torch.core.potentials import Factor
 from repro_torch.dist.partition import partition_histogram
+from repro_torch.models.model import LM
 from repro_torch.relational.synth import figure1
+from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.summary import JoinService
 from repro_torch.summary.algebra import SummaryFrame
 
@@ -53,10 +61,28 @@ server = JoinServer(JoinService(cat, device="cpu"))
 n = server.frame(q).frame.count()
 sharded = repro_torch.GraphicalJoin(cat, q, device="cpu", partitions=2).run()
 assert sharded.num_partitions == 2 and sharded.join_size == n
+import numpy as np
+from repro_torch.configs import get_smoke
+from repro_torch.data import JoinCorpus, TokenBatcher
+from repro_torch.models.model import LM
+from repro_torch.serve import (RelationalFeatureProvider, ServeConfig,
+                               ServeEngine)
+lm = LM(get_smoke("qwen3_8b").scaled(num_layers=2), device="cpu",
+        generator=torch.Generator().manual_seed(0))
+prov = RelationalFeatureProvider(JoinService(cat, device="cpu"), q,
+                                 key_var="A", aggs={"n": "count"})
+engine = ServeEngine(lm, ServeConfig(max_seq=12), feature_provider=prov,
+                     device="cpu")
+corpus = JoinCorpus.build(cat, q, vocab=lm.cfg.vocab, device="cpu")
+batch = TokenBatcher(corpus, 2, 8, device="cpu").next_batch()
+batch = engine.attach_features(batch, np.asarray(["a3", "a0"]))
+out = engine.generate(batch, max_new=4)
+assert out.shape == (2, 4) and ((out >= 0) & (out < lm.cfg.vocab)).all()
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print(len(rows["A"]), by_a["A"].tolist(), by_a["count"].tolist(),
-      msg[:, 0].tolist(), col.tolist(), n)
+      msg[:, 0].tolist(), col.tolist(), n,
+      tuple(batch["tokens"].shape), batch["features"].tolist())
 """
 
 
@@ -65,7 +91,8 @@ def test_port_runs_with_jax_and_reference_blocked():
     res = subprocess.run([sys.executable, "-c", CHILD], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "32 ['a3'] [32] [21, 21] [4, 4, 5] 32"
+    assert res.stdout.strip() == ("32 ['a3'] [32] [21, 21] [4, 4, 5] 32 "
+                                  "(2, 8) [[32.0], [0.0]]")
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:[.\s]|$)", re.M)
@@ -80,7 +107,12 @@ def test_source_imports_neither_jax_nor_reference():
     assert {"obs/check.py", "summary/cache.py", "summary/incremental.py",
             "summary/msgcache.py", "summary/service.py",
             "serve/server.py", "serve/__init__.py", "dist/partition.py",
-            "dist/actions.py", "dist/__init__.py", "ft/straggler.py"} <= names
+            "dist/actions.py", "dist/__init__.py", "ft/straggler.py",
+            "models/config.py", "models/layers.py", "models/flash.py",
+            "models/attention.py", "models/blocks.py", "models/model.py",
+            "configs/__init__.py", "configs/qwen3_8b.py",
+            "serve/engine.py", "data/pipeline.py", "launch/serve.py",
+            "interop.py"} <= names
     bad = {str(f.relative_to(ROOT)): _IMPORT.findall(f.read_text())
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -91,7 +123,9 @@ def test_source_imports_neither_jax_nor_reference():
                                    "group_runs_device", "summary_frame",
                                    "maybe_dense_message", "join_service",
                                    "partition_histogram",
-                                   "partitioned_facade"])
+                                   "partitioned_facade", "lm",
+                                   "serve_engine", "join_corpus",
+                                   "token_batcher"])
 def test_cuda_without_a_card_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cat, q = figure1()
@@ -117,6 +151,12 @@ def test_cuda_without_a_card_raises(monkeypatch, entry):
                    ones[:1], (1, 1)), "V", ones[:1]),
         "join_service": lambda: JoinService(cat),
         "partition_histogram": lambda: partition_histogram(ones, 2),
+        "lm": lambda: LM(get_smoke("qwen3_8b")),
+        "serve_engine": lambda: ServeEngine(
+            LM(get_smoke("qwen3_8b"), device="cpu"), ServeConfig(8)),
+        "join_corpus": lambda: JoinCorpus.build(cat, q, vocab=256),
+        "token_batcher": lambda: TokenBatcher(
+            JoinCorpus(gfjs, vocab=256), 2, 8),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -210,12 +210,18 @@ def test_admission_costs_equal_the_reference():
 
 
 def test_serve_package_names():
+    import repro.serve as ref_serve
+    from repro_torch.serve import engine as port_engine
     assert port_serve.JoinServer is port_server.JoinServer
-    assert set(port_serve.__all__) == {"AdmissionRejected",
-                                       "DeadlineExceeded", "JoinServer",
-                                       "SingleFlight", "lookup_rows"}
-    with pytest.raises(AttributeError, match="not ported yet"):
-        port_serve.ServeEngine
+    assert set(port_serve.__all__) == set(ref_serve.__all__) == {
+        "AdmissionRejected", "DeadlineExceeded", "JoinServer",
+        "SingleFlight", "lookup_rows", "RelationalFeatureProvider",
+        "ServeConfig", "ServeEngine", "make_serve_step"}
+    for name in ("RelationalFeatureProvider", "ServeConfig", "ServeEngine",
+                 "make_serve_step"):
+        assert getattr(port_serve, name) is getattr(port_engine, name)
+    with pytest.raises(AttributeError, match="no attribute"):
+        port_serve.TrainEngine
 
 
 # -- the validator ------------------------------------------------------------
