@@ -104,7 +104,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    runs equal, sampled runs with seeds 1 and 2 different; prefill seconds
    and tokens/s, decode ms per step, each beside its bound, the card's
    busy share of a decode loop and peak device bytes;
-12. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+12. the moe family's serving path on the card, for granite-moe-1b-a400m
+   (24 layers, 32 experts top-8) and deepseek-v2-236b (MLA, 160 routed
+   experts top-6 and 2 shared; 4 of its 60 layers, one dense and three
+   MoE, for one card): (a) each at full width, two layers, float32,
+   drop-free (capacity factor 64): prefill + stepwise decode logits equal
+   the teacher-forced ``forward``'s (deepseek: the absorbed-latent decode
+   against the expanded forward); (b) both smoke models at the configs'
+   capacity (drops included, counted) on the card against the CPU, as
+   phase 11 (b), and two card runs bit-equal; (c) both models in bf16
+   serving phase 11's join-fed batches with its checks and measurements;
+13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
 phase 5 (``expand_many``: the main path), zeroed again just before phase 6
@@ -112,14 +122,16 @@ and read just after it (``mul_segsum``, ``run_boundaries``: the summary
 path), again around phase 7's path (``expand_gather``,
 ``dense_message``), around phase 9 (``expand_many``, ``mul_segsum``,
 ``run_boundaries``: the serving path), around phase 10 (the same
-three: the partitioned path) and around phase 11 (the same three: the
-LM serving path's corpus build and features).  ``--out`` writes the per-shape
+three: the partitioned path), around phase 11 (the same three: the
+LM serving path's corpus build and features) and around phase 12 (the
+same three: the moe serving path's).  ``--out`` writes the per-shape
 measurements as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import itertools
 import json
@@ -2271,9 +2283,12 @@ def stepwise_logits(lm, toks, k: int) -> torch.Tensor:
     return torch.stack(out, 1)
 
 
-def lm_width_consistency(cfg, dev) -> dict:
+def lm_width_consistency(cfg, dev, *, logit_scaled: bool = False) -> dict:
     """(a) prefill + stepwise decode equal the teacher-forced forward, at
-    full width on the card, in both KV layouts, which agree."""
+    full width on the card, in both KV layouts, which agree to
+    LM_LAYOUT_TOL; with ``logit_scaled`` (phase 12) to LM_LAYOUT_TOL
+    times max|logits|, since a random tied head (granite-moe) gives
+    logits of std sqrt(d_model), ~30x an untied one's."""
     from repro_torch.models.model import LM
     lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(1))
     toks = seeded_tokens(cfg.vocab, (2, 16), 11, dev)
@@ -2294,10 +2309,16 @@ def lm_width_consistency(cfg, dev) -> dict:
             runs[layout] = (full, steps)
     out["layout_err"] = max(float((a - b).abs().max()) for a, b in
                             zip(runs["grouped"], runs["repeat"]))
-    check(all(torch.allclose(a, b, atol=LM_LAYOUT_TOL, rtol=LM_LAYOUT_TOL)
-              for a, b in zip(runs["grouped"], runs["repeat"])),
-          f"(a) the KV layouts differ by {out['layout_err']}")
     out["logit_max"] = float(runs["grouped"][0][..., :cfg.vocab].abs().max())
+    if logit_scaled:
+        layout_tol = LM_LAYOUT_TOL * out["logit_max"]
+        agree = out["layout_err"] <= layout_tol
+    else:
+        layout_tol = LM_LAYOUT_TOL
+        agree = all(torch.allclose(a, b, atol=LM_LAYOUT_TOL,
+                                   rtol=LM_LAYOUT_TOL)
+                    for a, b in zip(runs["grouped"], runs["repeat"]))
+    check(agree, f"(a) the KV layouts differ by {out['layout_err']}")
     out["param_bytes"] = lm.param_bytes()
     print(f"  (a) {cfg.name} at full width, {cfg.num_layers} layers, "
           f"float32 ({out['param_bytes']} B): prefill + 7 decode steps "
@@ -2305,7 +2326,7 @@ def lm_width_consistency(cfg, dev) -> dict:
           f"{out['decode_err_grouped']:.3g} / repeat "
           f"{out['decode_err_repeat']:.3g} (tol {LM_WIDTH_TOL}, |logits| <= "
           f"{out['logit_max']:.3g}); layouts agree to {out['layout_err']:.3g}"
-          f" (tol {LM_LAYOUT_TOL})")
+          f" (tol {layout_tol:.3g})")
     return out
 
 
@@ -2381,41 +2402,91 @@ def kernel_seconds_by_name(events, top: int = 8) -> dict:
 
 def lm_bounds(lm, B: int, S: int, new: int) -> dict:
     """The least time the card could take for this run's prefill and its
-    decode steps (bf16 weights).  Bytes: each weight read once (the
-    embedding table: only the rows looked up), the KV cache written once
-    (prefill) or read up to the current position (decode), the logits
-    written once.  Operations: 2 per weight per token, the causal
-    attention's two products over the positions each query sees, and the
-    head only for the last position (as ``prefill`` computes it)."""
+    decode steps.  Bytes: each weight read once at its own width (the
+    embedding table: only the rows looked up, unless the head reads it
+    whole; every expert of a MoE layer, since the products batched over
+    E read them all; the router is float32), the cache written once
+    (prefill) or read up to the current position (decode): K and V of
+    each head group, or MLA's latent of ``kv_lora + rope`` per position,
+    and the logits written once.  Operations, at the bf16 peak: 2 per
+    dense matrix weight per token, the experts' ``2*3*d*d_ff_expert`` per
+    capacity slot computed (``E * cap`` a MoE layer a call), the causal
+    attention's two products over the positions each query sees (MLA's
+    prefill ``nope + rope`` for scores and ``v`` for values per head; its
+    absorbed decode ``H*(2*(kv_lora + rope) + 2*kv_lora)`` per cached
+    position), the head only for the last position (as ``prefill``
+    computes it); and the router's ``2*d*E`` per token at the float32
+    peak."""
+    from repro_torch.models.attention import MLAttention
+    from repro_torch.models.moe import MoEBlock, capacity
     cfg = lm.cfg
     elt = 2 if cfg.param_dtype == "bfloat16" else 4
     d, L, H, KV, hd = (cfg.d_model, cfg.num_layers, cfg.num_heads,
                        cfg.num_kv_heads, cfg.head_dim_)
     Vp = lm.vocab_padded
     embed = lm.embed.numel()
-    weights = sum(p.numel() for p in lm.parameters()) - embed
+    experts = [m for m in lm.modules() if isinstance(m, MoEBlock)]
+    n_mla = sum(isinstance(m, MLAttention) for m in lm.modules())
+    n_gqa = L - n_mla
+    expert_w = {id(getattr(m, w)) for m in experts
+                for w in ("router", "w_gate", "w_up", "w_down")}
+    weight_bytes = sum(p.numel() * p.element_size() for p in lm.parameters()
+                       if p is not lm.embed)
+    if cfg.tie_embeddings:
+        weight_bytes += embed * lm.embed.element_size()
     mats = sum(p.numel() for n, p in lm.named_parameters()
-               if n.startswith("segments.") and p.dim() >= 2)
+               if n.startswith("segments.") and p.dim() >= 2
+               and id(p) not in expert_w)
     head = d * Vp
-    pre_bytes = (weights + B * S * d + 2 * L * B * KV * S * hd) * elt \
+    if n_mla:
+        m = cfg.mla
+        lat, dqk, r = (m.kv_lora_rank + m.rope_head_dim,
+                       m.nope_head_dim + m.rope_head_dim, m.kv_lora_rank)
+
+    def cache_elems(pos: int) -> int:
+        out = 2 * n_gqa * B * KV * pos * hd
+        return out + (n_mla * B * pos * lat if n_mla else 0)
+
+    def expert_ops(n_tok: int) -> tuple:
+        """(bf16 operations of the capacity slots, f32 of the routers)."""
+        bf = f32 = 0
+        for mod in experts:
+            me = mod.cfg.moe
+            cap = capacity(n_tok, me.experts_per_token, me.num_experts,
+                           me.capacity_factor)
+            bf += 6 * d * me.d_ff_expert * me.num_experts * cap
+            f32 += 2 * d * me.num_experts * n_tok
+        return bf, f32
+
+    pre_bytes = weight_bytes + (B * S * d + cache_elems(S)) * elt \
         + B * Vp * 4
-    pre_ops = 2 * mats * B * S + 2 * H * hd * S * (S + 1) * B * L \
-        + 2 * head * B
-    pre = max(pre_bytes / HBM_BYTES_PER_S, pre_ops / BF16_FLOP_PER_S)
-    steps = []
+    moe_bf, moe_f32 = expert_ops(B * S)
+    pre_ops = 2 * mats * B * S + 2 * H * hd * S * (S + 1) * B * n_gqa \
+        + 2 * head * B + moe_bf
+    if n_mla:
+        pre_ops += H * (dqk + m.v_head_dim) * S * (S + 1) * B * n_mla
+    pre_ops_s = pre_ops / BF16_FLOP_PER_S + moe_f32 / FP32_FLOP_PER_S
+    pre = max(pre_bytes / HBM_BYTES_PER_S, pre_ops_s)
+    step_bf, step_f32 = expert_ops(B)
+    steps, by_bytes = [], 0
     for pos in range(S, S + new - 1):        # the cache holds pos + 1
-        b = (weights + B * d + 2 * L * B * KV * (pos + 1) * hd) * elt \
+        b = weight_bytes + (B * d + cache_elems(pos + 1)) * elt \
             + B * Vp * 4
-        ops = 2 * (mats + head) * B + 4 * H * hd * (pos + 1) * B * L
-        steps.append(max(b / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S))
-    all_params = weights + embed
+        ops = 2 * (mats + head) * B + 4 * H * hd * (pos + 1) * B * n_gqa \
+            + step_bf
+        if n_mla:
+            ops += H * (2 * lat + 2 * r) * (pos + 1) * B * n_mla
+        ops_s = ops / BF16_FLOP_PER_S + step_f32 / FP32_FLOP_PER_S
+        steps.append(max(b / HBM_BYTES_PER_S, ops_s))
+        by_bytes += b / HBM_BYTES_PER_S > ops_s
+    all_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    all_params = sum(p.numel() for p in lm.parameters())
     return dict(prefill_s=pre, prefill_bound_by="operations"
-                if pre_ops / BF16_FLOP_PER_S > pre_bytes / HBM_BYTES_PER_S
-                else "bytes", prefill_ops=pre_ops,
+                if pre_ops_s > pre_bytes / HBM_BYTES_PER_S else "bytes",
+                prefill_ops=pre_ops, prefill_f32_ops=moe_f32,
                 decode_step_s=sum(steps) / len(steps), decode_bound_by=
-                "bytes" if weights * elt / HBM_BYTES_PER_S
-                > 2 * (mats + head) * B / BF16_FLOP_PER_S else "operations",
-                coarse_decode_step_s=all_params * elt / HBM_BYTES_PER_S,
+                "bytes" if 2 * by_bytes > len(steps) else "operations",
+                coarse_decode_step_s=all_bytes / HBM_BYTES_PER_S,
                 coarse_prefill_s=2 * all_params * B * S / BF16_FLOP_PER_S)
 
 
@@ -2490,7 +2561,11 @@ def lm_serving(cat, query, cfg, dev) -> dict:
         hot = ServeEngine(lm, ServeConfig(max_seq=S + LM_NEW,
                                           temperature=1.0), device=dev)
         sampled = [hot.generate(batch, LM_NEW, seed=s) for s in (1, 2)]
-        check(not np.array_equal(sampled[0], sampled[1]),
+        row["sampled_differ"] = not np.array_equal(sampled[0], sampled[1])
+        # a random tied head (embedding std 1) gives logits of std
+        # sqrt(d_model): temperature 1 then draws the argmax, whatever
+        # the seed
+        check(row["sampled_differ"] or cfg.tie_embeddings,
               f"(c) {B} x {S}: sampled runs with seeds 1 and 2 agree")
         bound = lm_bounds(lm, B, S, LM_NEW)
         row.update(prefill_s=pre_s, decode_step_s=step_s,
@@ -2526,7 +2601,7 @@ def lm_serving(cat, query, cfg, dev) -> dict:
               f"{bound['decode_bound_by']} (all parameter bytes / HBM: "
               f"{bound['coarse_decode_step_s'] * 1e3:.3f} ms); decode loop "
               f"{fmt_busy(row['busy'])}; greedy twice equal, sampled seeds "
-              f"1 / 2 differ")
+              f"1 / 2 {'differ' if row['sampled_differ'] else 'agree'}")
         print(f"      the decode loop's card time by kernel ("
               f"{LM_PROFILED_STEPS} steps, s): "
               + ", ".join(f"{k} {v[0]:.6f} x{v[1]}" for k, v in
@@ -2549,6 +2624,103 @@ def run_lm_serving(cat, queries, dev) -> dict:
     torch.cuda.empty_cache()
     out["smoke"] = lm_card_against_cpu(cfgs["smoke"], dev)
     out["full"] = lm_serving(cat, queries["lastfm_A1"], cfgs["full"], dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase {out['seconds']:.1f}s")
+    return out
+
+
+# -- phase 12: the moe family's serving path ---------------------------------
+
+MOE_ARCHS = ("granite_moe_1b_a400m", "deepseek_v2_236b")
+# deepseek-v2's 60 layers take 472 GB in bf16; one card holds 4 (one
+# dense, three MoE: 26.6 GB)
+MOE_LAYERS = {"deepseek_v2_236b": 4}
+MOE_DROP_FREE = 64.0     # (a)'s capacity factor, as tests/test_models.py
+
+
+def moe_configs() -> dict:
+    """Phase 12's configurations per architecture: (a) full width, two
+    layers, float32, drop-free; (b) the smoke variant in float32 at the
+    config's capacity; (c) the full widths in bf16, deepseek's depth cut
+    to MOE_LAYERS."""
+    from repro_torch.configs import get_config, get_smoke
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    out = {}
+    for arch in MOE_ARCHS:
+        full = get_config(arch)
+        out[arch] = dict(
+            width=full.scaled(num_layers=2, moe=dataclasses.replace(
+                full.moe, capacity_factor=MOE_DROP_FREE), **f32),
+            smoke=get_smoke(arch).scaled(**f32),
+            full=full.scaled(num_layers=MOE_LAYERS.get(arch,
+                                                       full.num_layers)))
+    return out
+
+
+def dropped_slots(lm, fn) -> tuple:
+    """(slots dropped by capacity, slots routed) in ``lm``'s MoE layers
+    while ``fn()`` runs, from each layer's own ``route`` and
+    ``dispatch`` on its inputs."""
+    from repro_torch.models.moe import MoEBlock, capacity
+    counts = [0, 0]
+
+    def count(mod, args):
+        x = args[0]
+        me, n_tok = mod.cfg.moe, x.shape[0] * x.shape[1]
+        top_e, _ = mod.route(x.reshape(n_tok, -1))
+        _, keep = mod.dispatch(top_e, capacity(
+            n_tok, me.experts_per_token, me.num_experts,
+            me.capacity_factor))
+        counts[0] += int((~keep).sum())
+        counts[1] += keep.numel()
+
+    hooks = [m.register_forward_pre_hook(count) for m in lm.modules()
+             if isinstance(m, MoEBlock)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return tuple(counts)
+
+
+def moe_card_runs(cfg, dev, seed: int) -> dict:
+    """(b)'s second half: on a card model, the slots its stepwise run
+    drops, and two runs (forward, prefill, decode steps) bit-equal."""
+    from repro_torch.models.model import LM
+    lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(
+        seed))
+    toks = seeded_tokens(cfg.vocab, (3, 16), seed, dev)
+    with torch.inference_mode():
+        runs = [(lm(toks), stepwise_logits(lm, toks, 8)) for _ in range(2)]
+        dropped, routed = dropped_slots(
+            lm, lambda: stepwise_logits(lm, toks, 8))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    check(same, f"(b) {cfg.name}: two card runs differ")
+    print(f"  (b) {cfg.name}: two card runs (forward, prefill, 7 decode "
+          f"steps) bit-equal; the stepwise run drops {dropped} of "
+          f"{routed} routed slots at capacity factor "
+          f"{cfg.moe.capacity_factor}")
+    return dict(bit_equal=same, dropped=dropped, routed=routed)
+
+
+def run_moe_serving(cat, queries, dev) -> dict:
+    """Phase 12: the moe family's serving path on the card."""
+    cfgs = moe_configs()
+    t0 = time.perf_counter()
+    out: dict = {}
+    for i, arch in enumerate(MOE_ARCHS):
+        c = cfgs[arch]
+        row = dict(width=lm_width_consistency(c["width"], dev,
+                                              logit_scaled=True))
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["smoke"] = lm_card_against_cpu([c["smoke"]], dev)
+        row["smoke"].update(moe_card_runs(c["smoke"], dev, 30 + i))
+        row["full"] = lm_serving(cat, queries["lastfm_A1"], c["full"], dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = row
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase {out['seconds']:.1f}s")
     return out
@@ -2584,7 +2756,7 @@ def main() -> int:
 
 
 def smoke(dev, lastfm_kw, out_path, header) -> list:
-    """Phases 3-11 on ``dev``; returns the kernels line's entries.  (The
+    """Phases 3-12 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
     from repro_torch.kernels.dense_message import dense_message
@@ -2765,6 +2937,22 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     check(fallbacks.value == fb5, "numpy fallbacks on the LM serving path")
     print(f"LM serving path: launches {lm['launches']}, numpy fallbacks=0")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    expand_many.launches = mul_segsum.launches = 0
+    run_boundaries.launches = 0
+    fb6 = fallbacks.value
+    print("the moe serving path:")
+    moe = run_moe_serving(cat, queries, dev)
+    moe["launches"] = {"expand_many": expand_many.launches,
+                       "mul_segsum": mul_segsum.launches,
+                       "run_boundaries": run_boundaries.launches}
+    for name, n in moe["launches"].items():
+        check(n > 0, f"the moe serving path launched no {name} kernel")
+    check(fallbacks.value == fb6, "numpy fallbacks on the moe serving path")
+    print(f"moe serving path: launches {moe['launches']}, numpy "
+          f"fallbacks=0")
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -2776,6 +2964,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             message_shapes=message_rows, message_launches=message_launches,
             thin_launches=thin_launches, k_sweep=k_sweep, rates=rates,
             service=service, partitioned=partitioned, lm_serving=lm,
+            moe_serving=moe,
             previous_ms={"/".join(map(str, k)): v
                          for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(

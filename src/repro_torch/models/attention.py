@@ -14,12 +14,16 @@ all H heads only to suit a tensor-parallel mesh; the port's default,
 ``"grouped"``, folds the G query heads of each KV head into the rows of
 one product and is numerically the same (the tests hold the two equal).
 
-``MLAttention`` (DeepSeek-V2) is not ported yet.
+``MLAttention`` (DeepSeek-V2) caches only the compressed latent,
+``[B, S_max, kv_lora + rope_dim]``; its prefill expands the latent to
+per-head K/V, and its decode is the reference's absorbed form, which
+scores against the latent itself.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
@@ -29,15 +33,15 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, declare, dtype_of, rms_norm
 
 WAITS = ("is not ported yet (ROADMAP.md queue 1 item 7: the LM, training "
-         "and serving stack; the port has the dense family)")
+         "and serving stack; the port has the dense and moe families)")
 
 
 @dataclass
 class KVCache:
     """One layer's cache, updated in place by ``prefill`` and ``decode``."""
 
-    k: torch.Tensor   # [B, KV, S_max, hd]
-    v: torch.Tensor   # [B, KV, S_max, hd]
+    k: torch.Tensor   # [B, KV, S_max, hd] (MLA: the latent [B, S_max, Dl])
+    v: Optional[torch.Tensor]   # [B, KV, S_max, hd] (MLA: None)
     pos: int = 0      # filled length, one scalar for the whole batch
 
 
@@ -193,7 +197,141 @@ class GQAttention(nn.Module):
 
 
 class MLAttention(nn.Module):
-    """DeepSeek-V2 multi-head latent attention: waits for the MoE slice."""
+    """DeepSeek-V2 multi-head latent attention.
 
-    def __init__(self, cfg: ModelConfig, **_) -> None:
-        raise NotImplementedError(f"MLAttention ({cfg.name}) {WAITS}")
+    ``forward`` and ``prefill`` expand the latent to per-head K/V and run
+    dense or online attention (KV groups = H, group size 1).  ``decode``
+    is the ABSORBED form: ``q_nope`` is folded through ``wkv_b``'s key
+    half, so scores are taken against the cached latent itself and the
+    latent context goes through ``wkv_b``'s value half and ``wo``; the
+    cache is never expanded to per-head K/V, so a step costs O(S *
+    (kv_lora + rope)) per head instead of O(S * head_dim * 2)."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
+        super().__init__()
+        assert cfg.mla is not None
+        self.cfg = cfg
+        m = cfg.mla
+        d, H = cfg.d_model, cfg.num_heads
+        dt = dtype_of(cfg.param_dtype)
+        qdim = m.nope_head_dim + m.rope_head_dim
+        if m.q_lora_rank:
+            declare(self, "wq_a", (d, m.q_lora_rank), dt, device, d ** -0.5)
+            declare(self, "q_norm", (m.q_lora_rank,), dt, device, None)
+            declare(self, "wq_b", (m.q_lora_rank, H, qdim), dt, device,
+                    d ** -0.5)
+        else:
+            declare(self, "wq", (d, H, qdim), dt, device, d ** -0.5)
+        declare(self, "wkv_a", (d, m.kv_lora_rank + m.rope_head_dim), dt,
+                device, d ** -0.5)
+        declare(self, "kv_norm", (m.kv_lora_rank,), dt, device, None)
+        declare(self, "wkv_b", (m.kv_lora_rank, H,
+                                m.nope_head_dim + m.v_head_dim), dt, device,
+                d ** -0.5)
+        declare(self, "wo", (H, m.v_head_dim, d), dt, device,
+                (H * m.v_head_dim) ** -0.5)
+
+    def _q(self, x):
+        """[B, S, H, nope + rope]."""
+        m = self.cfg.mla
+        if m.q_lora_rank:
+            cq = x @ self.wq_a.to(x.dtype)
+            cq = rms_norm(cq, self.q_norm, self.cfg.norm_eps)
+            return GQAttention._proj(cq, self.wq_b)
+        return GQAttention._proj(x, self.wq)
+
+    def _latent(self, x, positions):
+        """(normed latent c [B, S, r], roped shared key [B, S, rope])."""
+        cfg, m = self.cfg, self.cfg.mla
+        ckv = x @ self.wkv_a.to(x.dtype)
+        c = rms_norm(ckv[..., :m.kv_lora_rank], self.kv_norm, cfg.norm_eps)
+        k_rope = apply_rope(ckv[..., None, m.kv_lora_rank:], positions,
+                            cfg.rope_theta)[..., 0, :]
+        return c, k_rope
+
+    _out = GQAttention._out        # einsum("bqhv,hvd->bqd"), [B,Sq,H*dv]
+
+    def _full_attention(self, x, positions):
+        """Expanded-KV attention, online above ``flash.DENSE_LIMIT``:
+        (y [B, S, d], the cache's latent rows [B, S, r + rope])."""
+        cfg, m = self.cfg, self.cfg.mla
+        B, S, _ = x.shape
+        H, dn = cfg.num_heads, m.nope_head_dim
+        q = self._q(x)
+        c, k_rope = self._latent(x, positions)
+        kv = GQAttention._proj(c, self.wkv_b)          # [B,S,H,dn+dv]
+        k_nope, v = kv[..., :dn], kv[..., dn:]
+        q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+        qf = torch.cat([q[..., :dn], q_rope], -1)
+        kf = torch.cat([k_nope, k_rope[:, :, None].expand(
+            B, S, H, m.rope_head_dim)], -1)
+        if flash.should_chunk(S, S):
+            # MHA: KV groups = H, group size 1
+            out = flash.online_attention(qf[:, :, :, None], kf, v,
+                                         causal=cfg.causal)[:, :, :, 0]
+        else:
+            scale = (dn + m.rope_head_dim) ** -0.5
+            # [B,H,S,hd] products
+            sc = (qf.transpose(1, 2) @ kf.permute(0, 2, 3, 1)).float()
+            sc = sc * scale
+            if cfg.causal:
+                pos = torch.arange(S, device=x.device)
+                sc = torch.where(pos[None, :] <= pos[:, None], sc, -1e30)
+            w = torch.softmax(sc, -1).to(x.dtype)
+            out = (w @ v.transpose(1, 2)).transpose(1, 2)  # [B,S,H,dv]
+        y = self._out(out.reshape(B, S, H * m.v_head_dim))
+        return y, torch.cat([c, k_rope], -1)
+
+    # -- entry points --------------------------------------------------------
+    def forward(self, x, positions, *, window: int = 0) -> torch.Tensor:
+        return self._full_attention(x, positions)[0]
+
+    def init_cache(self, batch: int, s_max: int) -> KVCache:
+        m = self.cfg.mla
+        lat = torch.zeros((batch, s_max, m.kv_lora_rank + m.rope_head_dim),
+                          dtype=dtype_of(self.cfg.compute_dtype),
+                          device=self.wkv_a.device)
+        return KVCache(lat, None, 0)
+
+    def prefill(self, x, positions, cache: KVCache, *, window: int = 0):
+        y, lat = self._full_attention(x, positions)
+        S = x.shape[1]
+        cache.k[:, :S] = lat
+        cache.pos = S
+        return y, cache
+
+    def decode(self, x, cache: KVCache, *, window: int = 0):
+        """Absorbed-form single-token decode against the latent cache."""
+        cfg, m = self.cfg, self.cfg.mla
+        B = x.shape[0]
+        H, dn, r = cfg.num_heads, m.nope_head_dim, m.kv_lora_rank
+        pos = cache.pos
+        s_max = cache.k.shape[1]
+        if pos >= s_max:
+            raise ValueError(f"latent cache full: {s_max} positions")
+        positions = torch.full((B, 1), pos, dtype=torch.int64,
+                               device=x.device)
+        q = self._q(x)[:, 0]                           # [B,H,dn+dr]
+        q_rope = apply_rope(q[:, None, :, dn:], positions,
+                            cfg.rope_theta)[:, 0]      # [B,H,dr]
+        c, k_rope = self._latent(x, positions)
+        cache.k[:, pos] = torch.cat([c, k_rope], -1)[:, 0]
+        c_all = cache.k[..., :r]                       # [B,S,r]
+        kr_all = cache.k[..., r:]                      # [B,S,dr] (roped)
+
+        wkv_b = self.wkv_b.to(x.dtype)                 # [r,H,dn+dv]
+        wk = wkv_b[..., :dn].permute(1, 2, 0)          # [H,dn,r]
+        wv = wkv_b[..., dn:].transpose(0, 1)           # [H,r,dv]
+        # absorb: q_lat[b,h,:] = q_nope[b,h,:] @ wk[h]
+        q_lat = torch.bmm(q[..., :dn].transpose(0, 1), wk).transpose(0, 1)
+        sc = (q_lat @ c_all.transpose(1, 2)
+              + q_rope @ kr_all.transpose(1, 2)).float()  # [B,H,S]
+        sc = sc * (dn + m.rope_head_dim) ** -0.5
+        valid = torch.arange(s_max, device=x.device) <= pos
+        sc = torch.where(valid, sc, -1e30)
+        w = torch.softmax(sc, -1).to(x.dtype)
+        ctx_lat = w @ c_all                            # [B,H,r]
+        out = torch.bmm(ctx_lat.transpose(0, 1), wv)   # [H,B,dv]
+        y = self._out(out.transpose(0, 1).reshape(B, H * m.v_head_dim))
+        cache.pos = pos + 1
+        return y[:, None], cache

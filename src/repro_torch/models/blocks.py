@@ -8,7 +8,7 @@ blocks applied in a Python loop, and its cache is a list of per-layer
 caches updated in place.  ``repro_torch.interop`` maps the reference's
 stacked ``[n, ...]`` parameters onto the stack's layers.
 
-``MoEBlock``, ``Mamba2Layer`` and ``XLSTMLayer`` are not ported yet.
+``Mamba2Layer`` and ``XLSTMLayer`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from repro_torch.models.attention import (WAITS, GQAttention, KVCache,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (activation_fn, declare, dtype_of,
                                       rms_norm)
+from repro_torch.models.moe import MoEBlock
 
 
 # ---------------------------------------------------------------------------
@@ -52,21 +53,17 @@ class MLP(nn.Module):
         return h @ self.w_down.to(x.dtype)
 
 
-class MoEBlock(nn.Module):
-    def __init__(self, cfg: ModelConfig, **_) -> None:
-        raise NotImplementedError(f"MoEBlock ({cfg.name}) {WAITS}")
-
-
 # ---------------------------------------------------------------------------
-# standard pre-norm transformer block (attention + MLP)
+# standard pre-norm transformer block (attention + MLP/MoE)
 # ---------------------------------------------------------------------------
 
 class TransformerBlock(nn.Module):
-    """Pre-norm block.  Variants: qk-norm, sliding window, softcap.  (An
-    MLA config raises here; the MoE FFN waits with ``MoEBlock``.)"""
+    """Pre-norm block.  Variants: GQA/MLA attention, qk-norm, sliding
+    window, softcap, MoE FFN.  The FFN is the attribute ``moe`` or
+    ``mlp``, the reference's parameter prefixes."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
-                 window: int = 0) -> None:
+                 window: int = 0, use_moe: bool = False) -> None:
         super().__init__()
         self.cfg = cfg
         self.window = window
@@ -74,17 +71,24 @@ class TransformerBlock(nn.Module):
         declare(self, "ln1", (cfg.d_model,), dt, device, None)
         declare(self, "ln2", (cfg.d_model,), dt, device, None)
         if cfg.mla is not None:
-            self.attn = MLAttention(cfg)
+            self.attn = MLAttention(cfg, device=device)
         else:
             self.attn = GQAttention(cfg, device=device)
-        self.mlp = MLP(cfg, device=device)
+        if use_moe:
+            self.moe = MoEBlock(cfg, device=device)
+        else:
+            self.mlp = MLP(cfg, device=device)
+        self.use_moe = use_moe
+
+    def _ffn(self, h):
+        return self.moe(h) if self.use_moe else self.mlp(h)
 
     def forward(self, x, positions):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         x = x + self.attn(h, positions, window=self.window)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + self.mlp(h)
+        return x + self._ffn(h)
 
     def init_cache(self, batch: int, s_max: int) -> KVCache:
         return self.attn.init_cache(batch, s_max)
@@ -95,7 +99,7 @@ class TransformerBlock(nn.Module):
         a, cache = self.attn.prefill(h, positions, cache, window=self.window)
         x = x + a
         h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + self.mlp(h), cache
+        return x + self._ffn(h), cache
 
     def decode(self, x, cache: KVCache):
         cfg = self.cfg
@@ -103,7 +107,7 @@ class TransformerBlock(nn.Module):
         a, cache = self.attn.decode(h, cache, window=self.window)
         x = x + a
         h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + self.mlp(h), cache
+        return x + self._ffn(h), cache
 
 
 class Mamba2Layer(nn.Module):

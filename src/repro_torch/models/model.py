@@ -1,5 +1,5 @@
-"""The LM of the dense family: blocks per architecture and the entry
-points the serving engine consumes (``repro/models/model.py``):
+"""The LM of the dense and moe families: blocks per architecture and the
+entry points the serving engine consumes (``repro/models/model.py``):
 
 * ``LM(cfg, device=, generator=)`` builds and initialises on ``device``;
 * ``forward(tokens)``                 -> logits [B, S, V]
@@ -11,8 +11,10 @@ Segments, as in the reference:
 
   dense  : [stack(block) x L]
   gemma3 : [unit(k local + 1 global) x U, local x tail]
+  moe    : [dense0: block x first_dense_layers, moe: MoE block x rest]
+           (MLA attention where the config has it: deepseek-v2)
 
-The ``moe``, ``vlm``, ``hybrid``, ``ssm`` and ``audio`` families raise
+The ``vlm``, ``hybrid``, ``ssm`` and ``audio`` families raise
 ``NotImplementedError`` (ROADMAP.md queue 1 item 7).
 
 The model is built where it runs: every parameter is allocated on
@@ -38,7 +40,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, declare, dtype_of,
                                        init_normal, rms_norm)
 
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe")
 
 
 def model_device(device: Union[str, torch.device]) -> torch.device:
@@ -103,7 +105,16 @@ class LM(nn.Module):
 
         L = cfg.num_layers
         self.segments = nn.ModuleDict()
-        if cfg.local_global_pattern:
+        if cfg.family == "moe":
+            nd = cfg.moe.first_dense_layers
+            if nd:
+                self.segments["dense0"] = ScanStack(
+                    nd, lambda: TransformerBlock(cfg, device=dev))
+            if L - nd:
+                self.segments["moe"] = ScanStack(
+                    L - nd, lambda: TransformerBlock(cfg, device=dev,
+                                                     use_moe=True))
+        elif cfg.local_global_pattern:
             k = cfg.local_global_pattern
             units, tail = L // (k + 1), L % (k + 1)
             if units:

@@ -839,10 +839,12 @@ def _cpu_and_card_lm(arch, dev, **extra):
     return cpu, card
 
 
-@pytest.mark.parametrize("arch", ["qwen3_8b", "gemma3_4b"])
+@pytest.mark.parametrize("arch", ["qwen3_8b", "gemma3_4b",
+                                  "granite_moe_1b_a400m", "deepseek_v2_236b"])
 def test_lm_on_the_card_matches_the_cpu(arch):
-    """Smoke phase 11 (b) at smoke size: forward, prefill and decode
-    logits to 1e-4, and 8 greedy tokens equal."""
+    """Smoke phases 11 and 12 (b) at smoke size: forward, prefill and
+    decode logits to 1e-4, and 8 greedy tokens equal (the moe family at
+    its configs' capacity, drops included)."""
     from repro_torch.serve import ServeConfig, ServeEngine
     dev = _card()
     cpu, card = _cpu_and_card_lm(arch, dev)
@@ -962,3 +964,122 @@ def test_join_fed_serving_on_the_card_equals_the_cpu():
     batch = eng.attach_features(b.next_batch(), keys[:4])
     assert batch["features"].is_cuda
     assert eng.generate(batch, 8).shape == (4, 8)
+
+
+# -- the moe family -----------------------------------------------------------
+
+def _layer_on_cpu_and_card(cls, cfg, dev, seed):
+    """A layer in float32 on the CPU with seeded weights (norm scales
+    too), and on the card with the same weights."""
+    gen = torch.Generator().manual_seed(seed)
+    cpu = cls(cfg, device=torch.device("cpu"))
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * p.shape[0] ** -0.5)
+    card = cls(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.parametrize("cf", [0.01, 1.25])
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m",
+                                  "deepseek_v2_236b"])
+def test_moe_block_on_the_card_matches_the_cpu(arch, cf):
+    """Routes and drops agree: outputs to 1e-5, the top-k equal."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.moe import MoEBlock
+    dev = _card()
+    cfg = get_smoke(arch).scaled(param_dtype="float32",
+                                 compute_dtype="float32")
+    cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    cpu, card = _layer_on_cpu_and_card(MoEBlock, cfg, dev, 1)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(3, 16, cfg.d_model)).astype(np.float32))
+    with torch.inference_mode():
+        torch.testing.assert_close(card(x.to(dev)).cpu(), cpu(x),
+                                   atol=1e-5, rtol=1e-5)
+        xt = x.reshape(-1, cfg.d_model)
+        assert torch.equal(card.route(xt.to(dev))[0].cpu(), cpu.route(xt)[0])
+
+
+@pytest.mark.parametrize("q_lora", [0, 32])
+def test_mla_on_the_card_matches_the_cpu(q_lora):
+    """forward, prefill and absorbed decode steps to 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.attention import MLAttention
+    dev = _card()
+    cfg = get_smoke("deepseek_v2_236b").scaled(param_dtype="float32",
+                                               compute_dtype="float32")
+    cfg = cfg.scaled(mla=dataclasses.replace(cfg.mla, q_lora_rank=q_lora))
+    cpu, card = _layer_on_cpu_and_card(MLAttention, cfg, dev, 3)
+    B, S, k = 2, 16, 10
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(B, S, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(S)[None].expand(B, S)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    with torch.inference_mode():
+        torch.testing.assert_close(card(x.to(dev), pos.to(dev)).cpu(),
+                                   cpu(x, pos), **tol)
+        cc, gc_ = cpu.init_cache(B, S), card.init_cache(B, S)
+        yc, cc = cpu.prefill(x[:, :k], pos[:, :k], cc)
+        yg, gc_ = card.prefill(x[:, :k].to(dev), pos[:, :k].to(dev), gc_)
+        torch.testing.assert_close(yg.cpu(), yc, **tol)
+        for t in range(k, S):
+            yc, cc = cpu.decode(x[:, t:t + 1], cc)
+            yg, gc_ = card.decode(x[:, t:t + 1].to(dev), gc_)
+            torch.testing.assert_close(yg.cpu(), yc, **tol)
+        torch.testing.assert_close(gc_.k.cpu(), cc.k, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m",
+                                  "deepseek_v2_236b"])
+def test_moe_lm_on_the_card_is_deterministic(arch, dtype):
+    """Two card forwards, and two prefill + decode runs, bit-equal: the
+    dispatch is an indexed copy and the combine a fixed-order sum."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import LM
+    dev = _card()
+    cfg = get_smoke(arch).scaled(param_dtype=dtype, compute_dtype=dtype)
+    lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(5))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (4, 32))).to(dev)
+
+    def run():
+        logits, caches = lm.prefill(toks[:, :16], 32)
+        out = [lm(toks), logits]
+        for t in range(16, 24):
+            logits, caches = lm.decode_step(toks[:, t:t + 1], caches)
+            out.append(logits)
+        return out
+
+    with torch.inference_mode():
+        a, b = run(), run()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_granite_is_built_on_the_card_at_full_size():
+    """granite-moe-1b-a400m at full width and depth on the card: every
+    parameter there, the count the config gives (vocab padded to 256),
+    the routers float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    dev = _card()
+    cfg = get_config("granite_moe_1b_a400m")
+    lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(7))
+    d, L, H, KV, hd = (cfg.d_model, cfg.num_layers, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim_)
+    E, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
+    per_layer = (2 * d + d * H * hd + 2 * d * KV * hd + H * hd * d
+                 + d * E + 3 * E * d * f)
+    want = lm.vocab_padded * d + d + L * per_layer
+    assert sum(p.numel() for p in lm.parameters()) == want
+    assert all(p.is_cuda for p in lm.parameters())
+    routers = [p for n, p in lm.named_parameters() if n.endswith("router")]
+    assert len(routers) == L
+    assert all(p.dtype == torch.float32 for p in routers)
+    toks = torch.zeros((2, 8), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        assert torch.isfinite(lm(toks)[..., :cfg.vocab]).all()

@@ -110,6 +110,7 @@ def test_source_imports_neither_jax_nor_reference():
             "dist/actions.py", "dist/__init__.py", "ft/straggler.py",
             "models/config.py", "models/layers.py", "models/flash.py",
             "models/attention.py", "models/blocks.py", "models/model.py",
+            "models/moe.py", "core/oracle.py", "core/baselines.py",
             "configs/__init__.py", "configs/qwen3_8b.py",
             "serve/engine.py", "data/pipeline.py", "launch/serve.py",
             "interop.py"} <= names
@@ -123,7 +124,7 @@ def test_source_imports_neither_jax_nor_reference():
                                    "group_runs_device", "summary_frame",
                                    "maybe_dense_message", "join_service",
                                    "partition_histogram",
-                                   "partitioned_facade", "lm",
+                                   "partitioned_facade", "lm", "moe_lm",
                                    "serve_engine", "join_corpus",
                                    "token_batcher"])
 def test_cuda_without_a_card_raises(monkeypatch, entry):
@@ -152,6 +153,7 @@ def test_cuda_without_a_card_raises(monkeypatch, entry):
         "join_service": lambda: JoinService(cat),
         "partition_histogram": lambda: partition_histogram(ones, 2),
         "lm": lambda: LM(get_smoke("qwen3_8b")),
+        "moe_lm": lambda: LM(get_smoke("deepseek_v2_236b")),
         "serve_engine": lambda: ServeEngine(
             LM(get_smoke("qwen3_8b"), device="cpu"), ServeConfig(8)),
         "join_corpus": lambda: JoinCorpus.build(cat, q, vocab=256),
