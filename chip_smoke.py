@@ -114,7 +114,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    capacity (drops included, counted) on the card against the CPU, as
    phase 11 (b), and two card runs bit-equal; (c) both models in bf16
    serving phase 11's join-fed batches with its checks and measurements;
-13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+13. training on the card, fed by GJ: ``JoinCorpus.build`` over lastfm_A1
+   on the card (``expand_many`` launched); (a) the qwen3_8b and granite
+   smoke models in float32 (granite drop-free) on the card against the
+   same weights on the CPU: the loss, every gradient and the parameters
+   after two AdamW steps to a relative 1e-5 (L2, per tensor), and two
+   card runs of three steps bit-equal under
+   ``torch.use_deterministic_algorithms(True)`` (granite at its own
+   capacity; ``CUBLAS_WORKSPACE_CONFIG`` is set before the first CUDA
+   call); (b) the qwen3_8b smoke model through ``Trainer`` for 8 steps,
+   checkpoints every 4, a crash after step 6, resumed: bit-equal to an
+   uninterrupted run; (c) granite-moe-1b-a400m at full size (24 layers,
+   bf16, random weights drawn on the card) training 20 steps of 8 x 1,024
+   join-fed tokens through ``Trainer`` and ``TokenBatcher(device=
+   "cuda")``: the loss falls, every loss and grad norm finite; ms per
+   step, tokens/s, the card's busy share of 5 more steps with kernel
+   seconds by name (2 for (d)), peak device bytes and ``train_bounds``; then its
+   whole train state (13.4 GB) saved once and restored, timed, every
+   crc32 checked; (d) Qwen3-8B at full width with its depth cut to 12 of
+   36 layers (printed as ``reduced``), 5 steps of 2 x 4,096 tokens (the
+   online attention path and its backward), measured as (c);
+14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
 phase 5 (``expand_many``: the main path), zeroed again just before phase 6
@@ -123,19 +143,22 @@ path), again around phase 7's path (``expand_gather``,
 ``dense_message``), around phase 9 (``expand_many``, ``mul_segsum``,
 ``run_boundaries``: the serving path), around phase 10 (the same
 three: the partitioned path), around phase 11 (the same three: the
-LM serving path's corpus build and features) and around phase 12 (the
-same three: the moe serving path's).  ``--out`` writes the per-shape
+LM serving path's corpus build and features), around phase 12 (the
+same three: the moe serving path's) and around phase 13
+(``expand_many``: the training path's corpus build).  ``--out`` writes the per-shape
 measurements as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -772,15 +795,16 @@ def same(got, want, what: str) -> None:
 OUR_KERNELS = ("segsum_pass", "boundaries_kernel", "expand_many_kernel")
 
 
-def profiled_events(fn, dev):
+def profiled_events(fn, dev, cpu: bool = True):
     """The Chrome-trace events torch.profiler records over one call of
-    ``fn`` (None if the profiler fails: a measurement, not a check)."""
+    ``fn`` (None if the profiler fails: a measurement, not a check).
+    ``cpu=False`` records the card's activity only, which keeps the trace
+    of a call that launches ~10^5 kernels short to export and read."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile, record_function
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
+        with profile(activities=acts, acc_events=True) as prof:
             with record_function("aggregate"):
                 fn()
             sync(dev)
@@ -2726,11 +2750,423 @@ def run_moe_serving(cat, queries, dev) -> dict:
     return out
 
 
+# -- phase 13: training on the card ------------------------------------------
+
+TRAIN_TOL = 1e-5           # (a) card against CPU: |card - cpu| / |cpu| (L2)
+                           # per tensor, float32
+TRAIN_PARITY_STEPS = 2     # (a) AdamW steps compared with the CPU
+TRAIN_BIT_STEPS = 3        # (a) steps of the two bit-equal card runs
+TRAIN_RESUME = dict(steps=8, checkpoint_every=4, crash_after_step=6)
+TRAIN_FULL = dict(granite_moe_1b_a400m=(20, 8, 1024),  # steps, B, S
+                  qwen3_8b=(5, 2, 4096))
+TRAIN_LAYERS = {"qwen3_8b": 12}     # of 36: the state of all 36 would be
+                                    # ~98 GB; 12 hold ~43 GB of it
+TRAIN_FREE = 10 << 30      # (d) device bytes that must stay free
+# (c) / (d): warm up over 2 steps to 1e-3, so that 20 steps move a random
+# model's loss by more than the spread between batches (at 3e-4, 20 steps
+# of a narrowed granite on the CPU moved it by less)
+TRAIN_LR = 1e-3
+# steps under the profiler: granite's 5 launch over 60,000 kernels, one
+# Qwen3-8B step (its online attention) ~28,000, and the profiler takes
+# several times the steps' own time to record and hand them over
+TRAIN_PROFILED_STEPS = {"granite_moe_1b_a400m": 5, "qwen3_8b": 2}
+TRAIN_TIMED_STEPS = 10     # (c) ms per step: median of the last ten
+CKPT_DIR = ROOT / "build" / "phase13_ckpt"
+CUBLAS_DETERMINISTIC = ":4096:8"
+
+
+def train_configs() -> dict:
+    """Phase 13's configurations: (a) the qwen3_8b and granite smoke
+    configs in float32 (granite drop-free for the gradients, at its
+    capacity for the bit-equal runs); (b) the qwen3_8b smoke config as
+    the configs have it (bf16); (c) granite-moe at full size; (d)
+    Qwen3-8B at full width, its depth cut to TRAIN_LAYERS."""
+    from repro_torch.configs import get_config, get_smoke
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    qwen = get_smoke("qwen3_8b").scaled(**f32)
+    granite = get_smoke("granite_moe_1b_a400m").scaled(**f32)
+    full = {a: get_config(a) for a in TRAIN_FULL}
+    return dict(
+        parity=[qwen, granite.scaled(moe=dataclasses.replace(
+            granite.moe, capacity_factor=MOE_DROP_FREE))],
+        bits=[qwen, granite], resume=get_smoke("qwen3_8b"),
+        full={a: c.scaled(num_layers=TRAIN_LAYERS.get(a, c.num_layers))
+              for a, c in full.items()},
+        depth={a: c.num_layers for a, c in full.items()})
+
+
+def seeded_batch(vocab: int, B: int, S: int, seed: int, dev) -> dict:
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.integers(0, vocab, (B, S))).to(dev)
+            for k in ("tokens", "labels")}
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got - want| / |want| in the L2 norm, computed on the CPU in
+    float64."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def loss_and_grads(lm, batch) -> tuple:
+    named = list(lm.named_parameters())
+    for _, p in named:
+        p.requires_grad_(True)
+    loss = lm.loss(batch)
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return loss.detach(), dict(zip((n for n, _ in named), grads))
+
+
+def train_card_against_cpu(cfg, dev, seed: int) -> dict:
+    """(a) the loss, every gradient and the parameters after
+    TRAIN_PARITY_STEPS AdamW steps, on the card against the CPU from the
+    same weights and batch, each to TRAIN_TOL."""
+    from repro_torch.models.model import LM
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    card = LM(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    batch = seeded_batch(cfg.vocab, 4, 32, seed, "cpu")
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    (l_cpu, g_cpu), (l_card, g_card) = (loss_and_grads(cpu, batch),
+                                        loss_and_grads(card, card_batch))
+    errs = dict(loss=rel_l2(l_card, l_cpu),
+                grads=max(rel_l2(g_card[n], g) for n, g in g_cpu.items()))
+    opt = AdamWConfig(warmup_steps=1, total_steps=10)
+    states = []
+    for lm, b in ((cpu, batch), (card, card_batch)):
+        step, state = make_train_step(lm, opt), init_train_state(lm)
+        for _ in range(TRAIN_PARITY_STEPS):
+            state, _ = step(state, b)
+        states.append(state)
+    errs["params"] = max(rel_l2(states[1].params[n], p)
+                         for n, p in states[0].params.items())
+    check(all(e <= TRAIN_TOL for e in errs.values()),
+          f"(a) {cfg.name}: the card differs from the CPU: {errs}")
+    print(f"  (a) {cfg.name} float32 (capacity factor "
+          f"{cfg.moe.capacity_factor if cfg.moe else '-'}): card against "
+          f"CPU, |card - cpu| / |cpu| per tensor: loss {errs['loss']:.3g}, "
+          f"gradients <= {errs['grads']:.3g}, parameters after "
+          f"{TRAIN_PARITY_STEPS} AdamW steps <= {errs['params']:.3g} "
+          f"(tol {TRAIN_TOL}); loss {float(l_card):.6f}")
+    return errs
+
+
+@contextlib.contextmanager
+def deterministic_mode():
+    """``torch.use_deterministic_algorithms(True)`` for a ``with`` block.
+    cuBLAS needs CUBLAS_WORKSPACE_CONFIG from before its first call."""
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == CUBLAS_DETERMINISTIC,
+          f"CUBLAS_WORKSPACE_CONFIG is not {CUBLAS_DETERMINISTIC}: set it "
+          f"before the first CUDA call")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def train_bit_equal(cfg, dev, seed: int) -> dict:
+    """(a) two card runs of TRAIN_BIT_STEPS steps from the same seed, in
+    deterministic mode: bit-equal parameters and moments."""
+    from repro_torch.models.model import LM
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+    runs = []
+    with deterministic_mode():
+        for _ in range(2):
+            lm = LM(cfg, device=dev,
+                    generator=torch.Generator(dev).manual_seed(seed))
+            step, state = make_train_step(lm, AdamWConfig()), \
+                init_train_state(lm)
+            for i in range(TRAIN_BIT_STEPS):
+                state, m = step(state, seeded_batch(cfg.vocab, 4, 32,
+                                                    seed + i, dev))
+            runs.append((state, float(m["loss"])))
+    (a, la), (b, lb) = runs
+    same = la == lb and all(
+        torch.equal(a.params[n], b.params[n])
+        and torch.equal(a.opt.m[n], b.opt.m[n])
+        and torch.equal(a.opt.v[n], b.opt.v[n]) for n in a.params)
+    check(same, f"(a) {cfg.name}: two deterministic card runs differ")
+    print(f"  (a) {cfg.name} float32 (capacity factor "
+          f"{cfg.moe.capacity_factor if cfg.moe else '-'}): two card runs "
+          f"of {TRAIN_BIT_STEPS} steps under "
+          f"torch.use_deterministic_algorithms(True): parameters, m and v "
+          f"bit-equal (loss {la:.6f})")
+    return dict(bit_equal=same, loss=la)
+
+
+def trainer_for(cfg, corpus, B: int, S: int, dev, ckpt: Path, steps: int,
+                lr: float = 3e-4, **tcfg):
+    from repro_torch.data import JoinCorpus, TokenBatcher
+    from repro_torch.models.model import LM
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    batcher = TokenBatcher(JoinCorpus(corpus.gfjs, cfg.vocab,
+                                      corpus.tokens_per_row), B, S,
+                           device=dev)
+    tcfg = {"checkpoint_every": 10 ** 9, "log_every": 1, **tcfg}
+    return Trainer(lambda gen: LM(cfg, device=dev, generator=gen),
+                   AdamWConfig(lr=lr, warmup_steps=2, total_steps=steps),
+                   batcher,
+                   TrainerConfig(steps=steps, checkpoint_dir=str(ckpt),
+                                 **tcfg), device=dev)
+
+
+def train_resume(cfg, corpus, dev) -> dict:
+    """(b) the smoke model through ``Trainer`` on the card: a run that
+    crashes after step 6 (checkpoints every 4) and resumes equals an
+    uninterrupted run bit for bit, in deterministic mode."""
+    r = TRAIN_RESUME
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    out = {}
+    with deterministic_mode():
+        whole = trainer_for(cfg, corpus, 4, 64, dev, CKPT_DIR / "whole",
+                            r["steps"], checkpoint_every=r["checkpoint_every"])
+        want = whole.run(seed=5)
+        crashed = trainer_for(cfg, corpus, 4, 64, dev, CKPT_DIR / "crash",
+                              r["steps"],
+                              checkpoint_every=r["checkpoint_every"],
+                              crash_after_step=r["crash_after_step"])
+        crash = None
+        try:
+            crashed.run(seed=5)
+        except RuntimeError as exc:
+            crash = str(exc)
+        check(crash == "injected failure (test)",
+              f"(b) the injected failure did not fire: {crash}")
+        steps_left = sorted(p.name for p in (CKPT_DIR / "crash").iterdir())
+        resumed = trainer_for(cfg, corpus, 4, 64, dev, CKPT_DIR / "crash",
+                              r["steps"],
+                              checkpoint_every=r["checkpoint_every"])
+        got = resumed.run(seed=5)
+    same = int(got.opt.step) == int(want.opt.step) == r["steps"] and all(
+        torch.equal(got.params[n], want.params[n])
+        and torch.equal(got.opt.m[n], want.opt.m[n])
+        and torch.equal(got.opt.v[n], want.opt.v[n]) for n in want.params)
+    check(same, "(b) the resumed run differs from the uninterrupted one")
+    out.update(bit_equal=same, checkpoints_at_crash=steps_left,
+               losses=[m["loss"] for m in resumed.metrics_log])
+    print(f"  (b) {cfg.name} ({cfg.param_dtype}) through Trainer on the "
+          f"card: {r['steps']} steps, checkpoints every "
+          f"{r['checkpoint_every']}, crash after step "
+          f"{r['crash_after_step']} (left {steps_left}), resumed: "
+          f"parameters, m, v and opt.step ({int(got.opt.step)}) bit-equal "
+          f"to the uninterrupted run")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out
+
+
+def train_bounds(lm, B: int, S: int) -> dict:
+    """The least time the card could take for one train step on a
+    ``[B, S]`` batch: the larger of the operations over the peaks (6 per
+    matrix weight per token, the MoE experts only as far as they are
+    active, ``k`` per token; the causal attention's two products, forward
+    and backward (3x the forward's ``4*H*hd`` per query-key pair); the
+    float32 router's ``6*d*E`` per token at the float32 peak) and the
+    bytes over HBM: parameters, gradients, ``m`` and ``v``, each read and
+    written once.  Remat's recompute (one more forward of the blocks) is
+    reported beside it, not in it."""
+    from repro_torch.models.moe import MoEBlock
+    cfg = lm.cfg
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim_
+    T = B * S
+    experts = [m for m in lm.modules() if isinstance(m, MoEBlock)]
+    expert_w = {id(getattr(m, w)) for m in experts
+                for w in ("router", "w_gate", "w_up", "w_down")}
+    mats = sum(p.numel() for n, p in lm.named_parameters()
+               if n.startswith("segments.") and p.dim() >= 2
+               and id(p) not in expert_w)
+    active = sum(3 * d * m.cfg.moe.d_ff_expert * m.cfg.moe.experts_per_token
+                 for m in experts)
+    head = d * lm.vocab_padded
+    attn_fwd = 4 * H * hd * (S * (S + 1) // 2) * B * cfg.num_layers
+    bf16_ops = 6 * (mats + active + head) * T + 3 * attn_fwd
+    f32_ops = sum(6 * d * m.cfg.moe.num_experts * T for m in experts)
+    ops_s = bf16_ops / BF16_FLOP_PER_S + f32_ops / FP32_FLOP_PER_S
+    n = sum(p.numel() for p in lm.parameters())
+    pbytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    state_bytes = 2 * (2 * pbytes + 8 * n)   # params, grads, m, v: r + w
+    bytes_s = state_bytes / HBM_BYTES_PER_S
+    remat_ops = 2 * (mats + active) * T + attn_fwd
+    return dict(step_s=max(ops_s, bytes_s),
+                bound_by="operations" if ops_s > bytes_s else "bytes",
+                ops=bf16_ops, f32_ops=f32_ops, ops_s=ops_s,
+                bytes=state_bytes, bytes_s=bytes_s, remat_ops=remat_ops,
+                remat_s=remat_ops / BF16_FLOP_PER_S, params=n,
+                param_bytes=pbytes)
+
+
+def train_full(cfg, corpus, dev, steps: int, B: int, S: int,
+               depth: int, profiled: int) -> tuple:
+    """(c) / (d): ``Trainer`` on the card over join-fed batches; the
+    losses, ms per step, tokens/s, busy share, peak bytes and bound.
+    Returns (results, trainer, state)."""
+    from repro_torch.train import make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak(dev)
+    trainer = trainer_for(cfg, corpus, B, S, dev, CKPT_DIR / "full", steps,
+                          lr=TRAIN_LR)
+    state, wall = timed(lambda: trainer.run(seed=0), dev)
+    lm = trainer.lm
+    losses = [m["loss"] for m in trainer.metrics_log]
+    norms = [m["grad_norm"] for m in trainer.metrics_log]
+    check(len(losses) == steps and all(np.isfinite(losses + norms)),
+          f"{cfg.name}: a loss or grad_norm is not finite: {losses} {norms}")
+    times = trainer.step_seconds[1:][-TRAIN_TIMED_STEPS:]
+    step_s = float(np.median(times))
+    out = dict(layers=cfg.num_layers, of_layers=depth, steps=steps,
+               batch=B, seq=S, losses=losses, grad_norms=norms,
+               step_seconds=trainer.step_seconds, step_s=step_s,
+               tokens_per_s=B * S / step_s, run_s=wall,
+               peak_device_bytes=peak_bytes(dev),
+               bound=train_bounds(lm, B, S))
+    # the card's busy share of ``profiled`` more steps
+    step = make_train_step(lm, trainer.opt_cfg)
+    batches = [trainer.batcher.next_batch() for _ in range(profiled)]
+
+    def loop():
+        nonlocal state
+        for b in batches:
+            state, _ = step(state, b)
+
+    _, loop_s = timed(loop, dev)
+    events, profile_s = timed(lambda: profiled_events(loop, dev, cpu=False),
+                              dev)
+    out["busy"] = busy_of(event_seconds(events), loop_s)
+    out["kernels"] = kernel_seconds_by_name(events)
+    out.update(profiled_steps=profiled, profiled_loop_s=loop_s,
+               profile_s=profile_s)
+    return out, trainer, state
+
+
+def fmt_train(name: str, r: dict, power: str) -> str:
+    b = r["bound"]
+    return (f"{name}: {r['layers']} of {r['of_layers']} layers, "
+            f"{b['params']} parameters ({b['param_bytes']} B), {r['steps']} "
+            f"steps of {r['batch']} x {r['seq']} tokens: loss "
+            f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; "
+            f"{r['step_s'] * 1e3:.3f} ms/step (median of "
+            f"{min(TRAIN_TIMED_STEPS, r['steps'] - 1)}), "
+            f"{r['tokens_per_s']:.1f} tokens/s; bound "
+            f"{b['step_s'] * 1e3:.3f} ms by {b['bound_by']} (operations "
+            f"{b['ops_s'] * 1e3:.3f} ms, state bytes {b['bytes_s'] * 1e3:.3f}"
+            f" ms; remat recompute {b['remat_s'] * 1e3:.3f} ms beside it); "
+            f"{r['profiled_steps']} more steps {fmt_busy(r['busy'])}; "
+            f"peak device bytes {r['peak_device_bytes']}; Trainer.run "
+            f"{r['run_s']:.1f}s (model built and drawn on the card), "
+            f"profiled steps {r['profile_s']:.1f}s [{power}]")
+
+
+def save_restore_full(state, dev, power: str) -> dict:
+    """(b) granite's whole train state saved once and restored: times,
+    every leaf's crc32 checked on the way back, and the restored tensors
+    equal to the live ones."""
+    from repro_torch.checkpoint import CheckpointManager
+    tensors = [state.opt.step, *state.params.values(),
+               *state.opt.m.values(), *state.opt.v.values()]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CKPT_DIR).free
+    check(free > nbytes * 1.05, f"(b) the disk under {CKPT_DIR} has "
+          f"{free} B free; the train state needs {nbytes} B")
+    mgr = CheckpointManager(str(CKPT_DIR / "granite"), keep=1)
+    path, save_s = timed(lambda: mgr.save(1, state), dev)
+    leaves = len(json.loads((Path(path) / "manifest.json").read_text())[
+        "leaves"])
+    (back, step, _), restore_s = timed(lambda: mgr.restore(state), dev)
+    check(step == 1, "(b) restored the wrong step")
+    same = all(torch.equal(back.params[n], p)
+               and torch.equal(back.opt.m[n], state.opt.m[n])
+               and torch.equal(back.opt.v[n], state.opt.v[n])
+               for n, p in state.params.items()) and \
+        torch.equal(back.opt.step, state.opt.step)
+    check(same, "(b) the restored granite state differs from the saved")
+    del back
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    print(f"  (b) granite-moe's whole train state ({leaves} leaves, "
+          f"{nbytes} B: bf16 parameters, float32 m and v): save "
+          f"{save_s:.3f}s ({nbytes / save_s / 1e9:.3f} GB/s, fsynced), "
+          f"restore {restore_s:.3f}s ({nbytes / restore_s / 1e9:.3f} GB/s) "
+          f"with every leaf's crc32 checked; restored tensors equal the "
+          f"saved ones; disk free {free} B [{power}]")
+    return dict(bytes=nbytes, leaves=leaves, save_s=save_s,
+                restore_s=restore_s, disk_free=free)
+
+
+def run_training(cat, queries, dev, power: str) -> dict:
+    """Phase 13: training on the card."""
+    from repro_torch.data import JoinCorpus
+    from repro_torch.kernels.expand_many import expand_many
+    cfgs = train_configs()
+    t0 = time.perf_counter()
+    out: dict = dict(power=power)
+    launches = expand_many.launches
+    corpus, t_corpus = timed(lambda: JoinCorpus.build(
+        cat, queries["lastfm_A1"], vocab=256, device=dev), dev)
+    out["corpus_launches"] = expand_many.launches - launches
+    check(out["corpus_launches"] > 0, "JoinCorpus.build launched no "
+          "expand_many kernel")
+    print(f"  [{power}] JoinCorpus over lastfm_A1 built on the card in "
+          f"{t_corpus:.4f}s: {corpus.num_rows} rows, expand_many launches "
+          f"{out['corpus_launches']}")
+    t1 = time.perf_counter()
+    out["parity"] = [train_card_against_cpu(c, dev, 40 + i)
+                     for i, c in enumerate(cfgs["parity"])]
+    out["bits"] = [train_bit_equal(c, dev, 50 + i)
+                   for i, c in enumerate(cfgs["bits"])]
+    out["resume"] = train_resume(cfgs["resume"], corpus, dev)
+    out["small_s"] = time.perf_counter() - t1
+    print(f"  (a) and (b) at smoke size: {out['small_s']:.1f}s [{power}]")
+
+    for arch, (steps, B, S) in TRAIN_FULL.items():
+        cfg = cfgs["full"][arch]
+        depth = cfgs["depth"][arch]
+        r, trainer, state = train_full(cfg, corpus, dev, steps, B, S, depth,
+                                       TRAIN_PROFILED_STEPS[arch])
+        if arch == "granite_moe_1b_a400m":
+            check(r["losses"][-1] < r["losses"][0], f"(c) {cfg.name}: the "
+                  f"loss did not fall over {steps} steps: {r['losses']}")
+            print("  (c) " + fmt_train(cfg.name, r, power))
+            r["save_restore"] = save_restore_full(state, dev, power)
+        else:
+            total = torch.cuda.get_device_properties(dev).total_memory \
+                if dev.type == "cuda" else 0
+            r["device_total_bytes"] = total
+            r["reduced"] = (f"num_layers {depth} -> {cfg.num_layers}: "
+                            f"parameters, gradients, m and v of all "
+                            f"{depth} layers (2 + 2 + 4 + 4 B a parameter) "
+                            f"do not fit one card")
+            check(dev.type != "cuda"
+                  or total - r["peak_device_bytes"] >= TRAIN_FREE,
+                  f"(d) {cfg.name}: peak {r['peak_device_bytes']} B leaves "
+                  f"less than {TRAIN_FREE} B of {total} free")
+            print("  (d) " + fmt_train(cfg.name, r, power))
+            print(f"  (d) reduced: {r['reduced']}; peak leaves "
+                  f"{total - r['peak_device_bytes']} B of {total} free")
+        print("      card time by kernel over the profiled steps (s): "
+              + ", ".join(f"{k} {v[0]:.6f} x{v[1]}"
+                          for k, v in r["kernels"].items()))
+        out[arch] = r
+        del trainer, state
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase {out['seconds']:.1f}s [{power}]")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the per-shape measurements "
                         "(JSON) to this file")
     args = parser.parse_args()
+    # phase 13's deterministic runs: cuBLAS reads it at its first call
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device: the port's kernels run on the card",
               file=sys.stderr)
@@ -2756,7 +3192,7 @@ def main() -> int:
 
 
 def smoke(dev, lastfm_kw, out_path, header) -> list:
-    """Phases 3-12 on ``dev``; returns the kernels line's entries.  (The
+    """Phases 3-13 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
     from repro_torch.kernels.dense_message import dense_message
@@ -2953,6 +3389,19 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     print(f"moe serving path: launches {moe['launches']}, numpy "
           f"fallbacks=0")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    expand_many.launches = 0
+    fb7 = fallbacks.value
+    print("training on the card:")
+    training = run_training(cat, queries, dev, header["power"])
+    training["launches"] = {"expand_many": expand_many.launches}
+    check(training["launches"]["expand_many"] > 0,
+          "the training path launched no expand_many kernel")
+    check(fallbacks.value == fb7, "numpy fallbacks on the training path")
+    print(f"training path: launches {training['launches']}, numpy "
+          f"fallbacks=0")
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -2964,7 +3413,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             message_shapes=message_rows, message_launches=message_launches,
             thin_launches=thin_launches, k_sweep=k_sweep, rates=rates,
             service=service, partitioned=partitioned, lm_serving=lm,
-            moe_serving=moe,
+            moe_serving=moe, training=training,
             previous_ms={"/".join(map(str, k)): v
                          for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(

@@ -8,9 +8,10 @@ parallel desummarization of both monolithic and sharded summaries;
 wire format (DESIGN.md §17).
 
 The reference's package also carries the model-sharding rules
-(``repro/dist/sharding.py``, ``act_sharding.py``).  They are not ported
-yet (ROADMAP.md queue 1, the LM, training and serving stack), so asking
-for their names raises :class:`AttributeError` naming that item.
+(``repro/dist/sharding.py``, ``act_sharding.py``).  They need more than
+one device and are not ported yet (ROADMAP.md queue 1 item 6: sharding,
+with the data-parallel train step), so asking for their names raises
+:class:`AttributeError` naming that item.
 Submodule re-exports resolve lazily (PEP 562), as in the reference.
 """
 
@@ -35,8 +36,8 @@ def __getattr__(name):
     if name in _SHARDING or name in _ACT:
         raise AttributeError(
             f"{name!r} belongs to the model-sharding rules, which are not "
-            "ported yet (ROADMAP.md queue 1: LM, training and serving "
-            "stack)")
+            "ported yet (ROADMAP.md queue 1 item 6: sharding and "
+            "everything that needs more than one device)")
     if name in _PARTITION:
         return getattr(importlib.import_module("repro_torch.dist.partition"),
                        name)

@@ -32,8 +32,9 @@ from repro_torch.models import flash
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, declare, dtype_of, rms_norm
 
-WAITS = ("is not ported yet (ROADMAP.md queue 1 item 7: the LM, training "
-         "and serving stack; the port has the dense and moe families)")
+WAITS = ("is not ported yet (ROADMAP.md queue 1 items 2-5: the hybrid, "
+         "ssm, vlm and audio families; the port has the dense and moe "
+         "families, their serving and their training)")
 
 
 @dataclass

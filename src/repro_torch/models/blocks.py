@@ -17,6 +17,7 @@ from typing import Callable, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (WAITS, GQAttention, KVCache,
                                          MLAttention)
@@ -125,14 +126,28 @@ class XLSTMLayer(nn.Module):
 # ---------------------------------------------------------------------------
 
 class ScanStack(nn.ModuleList):
-    """n structurally identical blocks applied in order."""
+    """n structurally identical blocks applied in order.
 
-    def __init__(self, n: int, make_block: Callable[[], nn.Module]) -> None:
+    With ``remat`` (the reference's ``jax.checkpoint`` per stacked block,
+    ``cfg.remat != "none"``), a forward that autograd records keeps only
+    each block's input and recomputes the block in the backward pass;
+    prefill, decode and forwards without gradients run the blocks
+    plainly."""
+
+    def __init__(self, n: int, make_block: Callable[[], nn.Module], *,
+                 remat: bool = False) -> None:
         super().__init__(make_block() for _ in range(n))
+        self.remat = remat
 
     def forward(self, x, positions):
+        remat = self.remat and torch.is_grad_enabled() and x.requires_grad
         for block in self:
-            x = block(x, positions)
+            if remat:
+                # the blocks draw no random numbers: no RNG state to keep
+                x = checkpoint(block, x, positions, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x, positions)
         return x
 
     def init_cache(self, batch: int, s_max: int) -> List:

@@ -27,7 +27,8 @@ def dtype_of(name: str) -> torch.dtype:
 def declare(module: nn.Module, name: str, shape: Sequence[int],
             dtype: torch.dtype, device: torch.device,
             std: Optional[float]) -> None:
-    """Register an uninitialised parameter ``name`` on ``module``.  ``std``
+    """Register an uninitialised parameter ``name`` on ``module``, without
+    gradients (``train_step.make_train_step`` turns them on).  ``std``
     is its normal initialiser's stddev, ``None`` for zeros (the
     reference's norm scales); :func:`init_normal` reads it from the
     module's ``init_stds``, which survives ``to_empty``."""

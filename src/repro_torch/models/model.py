@@ -15,7 +15,11 @@ Segments, as in the reference:
            (MLA attention where the config has it: deepseek-v2)
 
 The ``vlm``, ``hybrid``, ``ssm`` and ``audio`` families raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 7).
+``NotImplementedError`` (ROADMAP.md queue 1 items 2-5).
+
+Training (``repro_torch.train``) turns the parameters' gradients on;
+with ``cfg.remat != "none"`` each stack recomputes its blocks in the
+backward pass, as the reference's ``jax.checkpoint`` per block.
 
 The model is built where it runs: every parameter is allocated on
 ``device`` (``"cuda"`` by default, raising without a card; ``"meta"``
@@ -56,7 +60,8 @@ class GemmaUnit(nn.Module):
                  device: torch.device) -> None:
         super().__init__()
         self.loc = ScanStack(k, lambda: TransformerBlock(
-            cfg, device=device, window=cfg.sliding_window))
+            cfg, device=device, window=cfg.sliding_window),
+            remat=cfg.remat != "none")
         self.g = TransformerBlock(cfg, device=device, window=0)
 
     def forward(self, x, positions):
@@ -104,29 +109,34 @@ class LM(nn.Module):
         declare(self, "final_norm", (d,), dt, dev, None)
 
         L = cfg.num_layers
+        remat = cfg.remat != "none"
         self.segments = nn.ModuleDict()
         if cfg.family == "moe":
             nd = cfg.moe.first_dense_layers
             if nd:
                 self.segments["dense0"] = ScanStack(
-                    nd, lambda: TransformerBlock(cfg, device=dev))
+                    nd, lambda: TransformerBlock(cfg, device=dev),
+                    remat=remat)
             if L - nd:
                 self.segments["moe"] = ScanStack(
                     L - nd, lambda: TransformerBlock(cfg, device=dev,
-                                                     use_moe=True))
+                                                     use_moe=True),
+                    remat=remat)
         elif cfg.local_global_pattern:
             k = cfg.local_global_pattern
             units, tail = L // (k + 1), L % (k + 1)
             if units:
                 self.segments["units"] = ScanStack(
-                    units, lambda: GemmaUnit(cfg, k, device=dev))
+                    units, lambda: GemmaUnit(cfg, k, device=dev),
+                    remat=remat)
             if tail:
                 self.segments["tail"] = ScanStack(
                     tail, lambda: TransformerBlock(
-                        cfg, device=dev, window=cfg.sliding_window))
+                        cfg, device=dev, window=cfg.sliding_window),
+                    remat=remat)
         else:
             self.segments["blocks"] = ScanStack(
-                L, lambda: TransformerBlock(cfg, device=dev))
+                L, lambda: TransformerBlock(cfg, device=dev), remat=remat)
         if dev.type != "meta":
             self.init_weights(generator if generator is not None
                               else torch.Generator(dev).manual_seed(0))

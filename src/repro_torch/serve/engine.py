@@ -179,7 +179,15 @@ class ServeEngine:
     def generate(self, batch: Dict[str, Any], max_new: int,
                  *, seed: int = 0) -> np.ndarray:
         """Prefill the prompt batch then decode max_new tokens:
-        [B, max_new] int32."""
+        [B, max_new] int32.
+
+        The first token is sampled from the prefill's logits, so this runs
+        ``max_new - 1`` decode steps, one fewer than the reference, which
+        decodes once more and discards that step's token: the tokens are
+        equal.  ``max_new < 1`` raises ``ValueError`` (the reference's
+        empty concatenation raises too)."""
+        if max_new < 1:
+            raise ValueError(f"max_new must be at least 1, not {max_new}")
         tokens = torch.as_tensor(batch["tokens"]).to(self.device,
                                                      torch.int64)
         gen = torch.Generator(self.device).manual_seed(seed)

@@ -1083,3 +1083,154 @@ def test_granite_is_built_on_the_card_at_full_size():
     toks = torch.zeros((2, 8), dtype=torch.int64, device=dev)
     with torch.inference_mode():
         assert torch.isfinite(lm(toks)[..., :cfg.vocab]).all()
+
+
+# -- training and checkpoints (smoke phase 13 (a) and (b)) --------------------
+
+def _rel_l2(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def _train_batch(vocab, dev, seed=0, B=4, S=32):
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.integers(0, vocab, (B, S))).to(dev)
+            for k in ("tokens", "labels")}
+
+
+@pytest.mark.parametrize("arch", ["qwen3_8b", "granite_moe_1b_a400m"])
+def test_training_on_the_card_matches_the_cpu(arch):
+    """Smoke phase 13 (a): the loss, every gradient and the parameters
+    after two AdamW steps on the card against the CPU, each to 1e-5 in the
+    L2 norm (float32; granite drop-free, capacity factor 64)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    dev = _card()
+    extra = {}
+    if arch == "granite_moe_1b_a400m":
+        import dataclasses
+        extra["moe"] = dataclasses.replace(get_smoke(arch).moe,
+                                           capacity_factor=64.0)
+    cpu, card = _cpu_and_card_lm(arch, dev, **extra)
+    batch = _train_batch(cpu.cfg.vocab, "cpu")
+    cbatch = {k: v.to(dev) for k, v in batch.items()}
+    out = []
+    for lm, b in ((cpu, batch), (card, cbatch)):
+        params = [p.requires_grad_(True) for p in lm.parameters()]
+        loss = lm.loss(b)
+        out.append((loss.detach(), torch.autograd.grad(loss, params)))
+    assert _rel_l2(out[1][0], out[0][0]) <= 1e-5
+    for g_card, g_cpu in zip(out[1][1], out[0][1]):
+        assert _rel_l2(g_card, g_cpu) <= 1e-5
+    states = []
+    for lm, b in ((cpu, batch), (card, cbatch)):
+        step, state = make_train_step(lm, AdamWConfig(warmup_steps=1)), \
+            init_train_state(lm)
+        for _ in range(2):
+            state, _ = step(state, b)
+        states.append(state)
+    for name, p in states[0].params.items():
+        assert _rel_l2(states[1].params[name], p) <= 1e-5, name
+
+
+@pytest.mark.parametrize("arch", ["qwen3_8b", "granite_moe_1b_a400m"])
+def test_training_on_the_card_is_deterministic(arch, monkeypatch):
+    """Smoke phase 13 (a): two card runs of three steps from one seed are
+    bit-equal under ``torch.use_deterministic_algorithms(True)`` (granite
+    at its config's capacity, drops included)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import LM
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    dev = _card()
+    cfg = get_smoke(arch).scaled(param_dtype="float32",
+                                 compute_dtype="float32")
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            lm = LM(cfg, device=dev,
+                    generator=torch.Generator(dev).manual_seed(8))
+            step, state = make_train_step(lm, AdamWConfig()), \
+                init_train_state(lm)
+            for i in range(3):
+                state, _ = step(state, _train_batch(cfg.vocab, dev, i))
+            runs.append(state)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = runs
+    for n in a.params:
+        assert torch.equal(a.params[n], b.params[n]), n
+        assert torch.equal(a.opt.m[n], b.opt.m[n]), n
+        assert torch.equal(a.opt.v[n], b.opt.v[n]), n
+
+
+def test_trainer_crash_and_resume_on_the_card_is_bit_exact(tmp_path,
+                                                           monkeypatch):
+    """Smoke phase 13 (b): ``Trainer`` on the card, fed by a corpus built
+    on the card; a crash after step 6 (checkpoints every 4) and a resume
+    equal an uninterrupted run bit for bit."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import JoinCorpus, TokenBatcher
+    from repro_torch.models.model import LM
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    dev = _card()
+    cfg = get_smoke("qwen3_8b")
+    cat, qs = lastfm_like(n_users=60, n_artists=50, artists_per_user=4,
+                          friends_per_user=3)
+    corpus = JoinCorpus.build(cat, qs["lastfm_A1"], vocab=cfg.vocab,
+                              device=dev)
+
+    def trainer(d, crash=None):
+        return Trainer(lambda g: LM(cfg, device=dev, generator=g),
+                       AdamWConfig(warmup_steps=2, total_steps=8),
+                       TokenBatcher(corpus, 4, 16, device=dev),
+                       TrainerConfig(steps=8, checkpoint_every=4,
+                                     checkpoint_dir=str(d), log_every=4,
+                                     crash_after_step=crash), device=dev)
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = trainer(tmp_path / "whole").run(seed=3)
+        with pytest.raises(RuntimeError, match="injected failure"):
+            trainer(tmp_path / "crash", crash=6).run(seed=3)
+        got = trainer(tmp_path / "crash").run(seed=3)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert int(got.opt.step) == int(want.opt.step) == 8
+    assert all(p.is_cuda for p in got.params.values())
+    for n in want.params:
+        assert torch.equal(got.params[n], want.params[n]), n
+        assert torch.equal(got.opt.m[n], want.opt.m[n]), n
+
+
+def test_checkpoint_of_card_tensors_round_trips(tmp_path):
+    """A train state on the card saved (synchronously and through
+    ``save_async``, whose staged download covers a leaf past
+    ``STAGE_BYTES``) and restored onto the card, bit for bit, bf16 too."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.engine import STAGE_BYTES
+    dev = _card()
+    g = torch.Generator(dev).manual_seed(9)
+    tree = {"big": torch.randn(STAGE_BYTES // 4 + 1000, generator=g,
+                               device=dev),
+            "segments.blocks.0.w": torch.randn(3, 5, generator=g,
+                                               device=dev).bfloat16(),
+            "segments.blocks.1.w": torch.randn(3, 5, generator=g,
+                                               device=dev).bfloat16(),
+            "step": torch.tensor(4, dtype=torch.int32, device=dev)}
+    mgr = CheckpointManager(str(tmp_path / "c"))
+    mgr.save(1, tree)
+    mgr.save_async(2, tree)
+    snapshot = {k: v.clone() for k, v in tree.items()}
+    tree["big"].add_(1.0)
+    for step in (1, 2):
+        back, got_step, _ = mgr.restore(snapshot, step=step)
+        assert got_step == step
+        for k, v in snapshot.items():
+            assert back[k].is_cuda and back[k].dtype == v.dtype
+            assert torch.equal(back[k], v), k

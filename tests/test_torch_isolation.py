@@ -7,11 +7,12 @@ through a ``JoinServer`` in front of a ``JoinService``, and runs a
 ``partitions=2`` build, then builds a smoke ``LM``, takes one
 ``TokenBatcher`` batch from a ``JoinCorpus`` over Figure 1, and serves it
 greedily through a ``ServeEngine`` with features from a
-``RelationalFeatureProvider`` over a Figure-1 ``JoinService``; a source
-scan finds no jax or ``repro`` import under ``src/repro_torch/`` (the
-serving, partitioning, model and data modules included) or in
-``chip_smoke.py``; and a ``cuda`` entry point without a card raises
-instead of running on the CPU.
+``RelationalFeatureProvider`` over a Figure-1 ``JoinService``, then
+trains it one ``Trainer`` step with a checkpoint (``ml_dtypes`` blocked
+too); a source scan finds no jax, ``repro`` or ``ml_dtypes`` import under
+``src/repro_torch/`` (the serving, partitioning, model, data, training
+and checkpoint modules included) or in ``chip_smoke.py``; and a ``cuda``
+entry point without a card raises instead of running on the CPU.
 """
 
 import os
@@ -35,6 +36,8 @@ from repro_torch.relational.synth import figure1
 from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.summary import JoinService
 from repro_torch.summary.algebra import SummaryFrame
+from repro_torch.train.optim import AdamWConfig
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -42,6 +45,7 @@ CHILD = """
 import sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
 import repro_torch
 from repro_torch.relational.synth import figure1
 cat, q = figure1()
@@ -78,7 +82,19 @@ batch = TokenBatcher(corpus, 2, 8, device="cpu").next_batch()
 batch = engine.attach_features(batch, np.asarray(["a3", "a0"]))
 out = engine.generate(batch, max_new=4)
 assert out.shape == (2, 4) and ((out >= 0) & (out < lm.cfg.vocab)).all()
-assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+import os, tempfile
+from repro_torch.train.optim import AdamWConfig
+from repro_torch.train.trainer import Trainer, TrainerConfig
+ckpt = os.path.join(tempfile.mkdtemp(), "ckpt")
+trainer = Trainer(lm, AdamWConfig(), TokenBatcher(corpus, 2, 8, device="cpu"),
+                  TrainerConfig(steps=1, checkpoint_every=1,
+                                checkpoint_dir=ckpt, log_every=1),
+                  device="cpu")
+state = trainer.run()
+assert int(state.opt.step) == 1 and os.listdir(ckpt) == ["step_0000000001"]
+assert trainer.metrics_log[0]["step"] == 1
+assert not any(m in ("jax", "ml_dtypes")
+               or m.startswith(("jax.", "repro.", "ml_dtypes."))
                for m in sys.modules if sys.modules[m] is not None)
 print(len(rows["A"]), by_a["A"].tolist(), by_a["count"].tolist(),
       msg[:, 0].tolist(), col.tolist(), n,
@@ -95,10 +111,13 @@ def test_port_runs_with_jax_and_reference_blocked():
                                   "(2, 8) [[32.0], [0.0]]")
 
 
-_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:[.\s]|$)", re.M)
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro|ml_dtypes)(?:[.\s]|$)",
+                     re.M)
 
 
 def test_source_imports_neither_jax_nor_reference():
+    """Nor ``ml_dtypes``, which comes with jax: the card's machine has
+    neither."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
@@ -113,7 +132,10 @@ def test_source_imports_neither_jax_nor_reference():
             "models/moe.py", "core/oracle.py", "core/baselines.py",
             "configs/__init__.py", "configs/qwen3_8b.py",
             "serve/engine.py", "data/pipeline.py", "launch/serve.py",
-            "interop.py"} <= names
+            "interop.py", "train/__init__.py", "train/optim.py",
+            "train/train_step.py", "train/trainer.py",
+            "checkpoint/__init__.py", "checkpoint/store.py",
+            "launch/train.py"} <= names
     bad = {str(f.relative_to(ROOT)): _IMPORT.findall(f.read_text())
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -126,7 +148,7 @@ def test_source_imports_neither_jax_nor_reference():
                                    "partition_histogram",
                                    "partitioned_facade", "lm", "moe_lm",
                                    "serve_engine", "join_corpus",
-                                   "token_batcher"])
+                                   "token_batcher", "trainer"])
 def test_cuda_without_a_card_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cat, q = figure1()
@@ -159,6 +181,10 @@ def test_cuda_without_a_card_raises(monkeypatch, entry):
         "join_corpus": lambda: JoinCorpus.build(cat, q, vocab=256),
         "token_batcher": lambda: TokenBatcher(
             JoinCorpus(gfjs, vocab=256), 2, 8),
+        "trainer": lambda: Trainer(
+            LM(get_smoke("qwen3_8b"), device="cpu"), AdamWConfig(),
+            TokenBatcher(JoinCorpus(gfjs, vocab=256), 2, 8, device="cpu"),
+            TrainerConfig()),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

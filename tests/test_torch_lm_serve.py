@@ -97,6 +97,18 @@ def test_greedy_is_seed_independent_and_sampling_is_seeded():
     assert ((a >= 0) & (a < lm.cfg.vocab)).all()
 
 
+@pytest.mark.parametrize("max_new", [0, -1])
+def test_generate_refuses_fewer_than_one_token(max_new):
+    """As the reference, whose empty concatenation raises: no tokens is
+    no generation (the port's used to return one token per row)."""
+    _, _, lm = twin("qwen3_8b")
+    toks = {"tokens": torch.from_numpy(prompts(lm.cfg, B=2, S=8))}
+    eng = ServeEngine(lm, ServeConfig(max_seq=16), device="cpu")
+    with pytest.raises(ValueError, match="max_new must be at least 1"):
+        eng.generate(toks, max_new)
+    assert eng.generate(toks, 1).shape == (2, 1)
+
+
 def test_serve_steps_are_the_model_entry_points():
     _, _, lm = twin("starcoder2_3b")
     toks = torch.from_numpy(prompts(lm.cfg, B=2, S=8))
@@ -238,6 +250,6 @@ def test_launch_serve_cli_serves_a_batch_on_the_cpu(capsys):
             and ":" in ln and "features" not in ln]
     assert len(rows) == 2 and all(len(eval(r.split(": ", 1)[1])) == 3
                                   for r in rows)
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 7"):
+    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 items 2-5"):
         launch_serve.main(["--arch", "zamba2_2p7b", "--smoke", "--device",
                            "cpu"])
