@@ -134,7 +134,21 @@ Phases, each fatal on failure (exit code 1, no result line):
    crc32 checked; (d) Qwen3-8B at full width with its depth cut to 12 of
    36 layers (printed as ``reduced``), 5 steps of 2 x 4,096 tokens (the
    online attention path and its backward), measured as (c);
-14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+14. the recurrent families on the card, zamba2-2.7b (Mamba2 layers and
+   one shared attention block applied at the head of every unit of 6)
+   and xlstm-350m (mLSTM + sLSTM units): (a) each at full width in
+   float32, its depth cut to one unit and a tail (7 of 54 layers, 3 of
+   24): prefill + stepwise decode logits equal the teacher-forced
+   ``forward``'s, as phase 11 (a); (b) both smoke models on the card
+   against the CPU, as phase 11 (b), and two card runs bit-equal; (c)
+   both at full size in bf16 (zamba2's 54 layers, ~2.4 B parameters;
+   xLSTM's 24) serving phase 11's join-fed batches with its checks and
+   measurements (``lm_bounds`` counts the recurrent states and the
+   chunked products; xLSTM, whose sLSTM prefill loops over time, with one
+   greedy run beside the timed one and no sampled runs, printed); (d)
+   both smoke models' loss, gradients and parameters after two AdamW
+   steps, card against CPU, as phase 13 (a);
+15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
 phase 5 (``expand_many``: the main path), zeroed again just before phase 6
@@ -144,9 +158,10 @@ path), again around phase 7's path (``expand_gather``,
 ``run_boundaries``: the serving path), around phase 10 (the same
 three: the partitioned path), around phase 11 (the same three: the
 LM serving path's corpus build and features), around phase 12 (the
-same three: the moe serving path's) and around phase 13
-(``expand_many``: the training path's corpus build).  ``--out`` writes the per-shape
-measurements as JSON.
+same three: the moe serving path's), around phase 13
+(``expand_many``: the training path's corpus build) and around phase 14
+(the three of phase 11: the recurrent families' serving path).  ``--out``
+writes the per-shape measurements as JSON.
 """
 
 from __future__ import annotations
@@ -2393,7 +2408,8 @@ def lm_card_against_cpu(cfgs, dev) -> dict:
 
 def timed_greedy(lm, tokens, s_max: int, new: int, dev):
     """Greedy prefill + decode with the host clock around each part:
-    (tokens [B, new], prefill s, decode s per step)."""
+    (tokens [B, new], prefill s, decode s per step, the caches and the
+    last token, to go on decoding from)."""
     with torch.inference_mode():
         sync(dev)
         t0 = time.perf_counter()
@@ -2409,7 +2425,7 @@ def timed_greedy(lm, tokens, s_max: int, new: int, dev):
         sync(dev)
         t2 = time.perf_counter()
     return (torch.cat(out, 1).to(torch.int32).cpu().numpy(), t1 - t0,
-            (t2 - t1) / (new - 1))
+            (t2 - t1) / (new - 1), caches, tok)
 
 
 def kernel_seconds_by_name(events, top: int = 8) -> dict:
@@ -2424,43 +2440,104 @@ def kernel_seconds_by_name(events, top: int = 8) -> dict:
     return dict(sorted(by.items(), key=lambda kv: -kv[1][0])[:top])
 
 
+def cache_inventory(lm) -> tuple:
+    """(GQA KV caches, MLA latent caches, recurrent state bytes per batch
+    row) of ``lm``'s decode caches, read off caches built for one row and
+    one position: zamba2 has one KV cache per unit (its shared block's)
+    beside its Mamba2 states, xLSTM none."""
+    from repro_torch.models.attention import KVCache
+    counts = [0, 0, 0]
+
+    def walk(c):
+        if isinstance(c, (list, tuple)):
+            for x in c:
+                walk(x)
+        elif isinstance(c, KVCache):
+            counts[c.v is None] += 1
+        else:
+            counts[2] += sum(t.numel() * t.element_size() for t in
+                             (getattr(c, f.name)
+                              for f in dataclasses.fields(c)))
+
+    walk(lm.init_caches(1, 1))
+    return tuple(counts)
+
+
+def recurrent_ops(lm, B: int, S: int) -> tuple:
+    """(operations at the bf16 peak, at the float32 peak) of the recurrent
+    blocks' products beyond their weights, for ``[B, S]`` tokens (``S =
+    1``: a decode step).  Mamba2's chunked SSD in the compute dtype: the
+    causal ``C B^T`` and its product with the inputs within each chunk of
+    ``Q``, the chunk states and their readout (``4 N H P`` a token); its
+    decode the state update and readout.  The mLSTM's in float32: the
+    causal ``q k^T`` and its product with ``v`` within each chunk, the
+    products with ``C`` (``4 dk dv`` a head a token); its decode the same
+    ``4 dk dv``.  The sLSTM's recurrent product is a weight (``r``) used
+    once a token, counted with the weights."""
+    from repro_torch.models.ssm import Mamba2Block
+    from repro_torch.models.xlstm import MLSTMBlock
+    bf = f32 = 0
+    for m in lm.modules():
+        if isinstance(m, Mamba2Block):
+            H, P, N, Q = m.heads, m.P, m.N, min(m.cfg.ssm.chunk, S)
+            bf += B * (4 * H * N * P if S == 1 else
+                       S * (Q + 1) * (N + H * P) + 4 * S * N * H * P)
+        elif isinstance(m, MLSTMBlock):
+            H, dk, dv, Q = m.heads, m.dk, m.dv, min(256, S)
+            f32 += B * H * (4 * dk * dv if S == 1 else
+                            S * (Q + 1) * (dk + dv) + 4 * S * dk * dv)
+    return bf, f32
+
+
 def lm_bounds(lm, B: int, S: int, new: int) -> dict:
     """The least time the card could take for this run's prefill and its
     decode steps.  Bytes: each weight read once at its own width (the
     embedding table: only the rows looked up, unless the head reads it
     whole; every expert of a MoE layer, since the products batched over
-    E read them all; the router is float32), the cache written once
-    (prefill) or read up to the current position (decode): K and V of
-    each head group, or MLA's latent of ``kv_lora + rope`` per position,
-    and the logits written once.  Operations, at the bf16 peak: 2 per
-    dense matrix weight per token, the experts' ``2*3*d*d_ff_expert`` per
-    capacity slot computed (``E * cap`` a MoE layer a call), the causal
-    attention's two products over the positions each query sees (MLA's
-    prefill ``nope + rope`` for scores and ``v`` for values per head; its
-    absorbed decode ``H*(2*(kv_lora + rope) + 2*kv_lora)`` per cached
-    position), the head only for the last position (as ``prefill``
-    computes it); and the router's ``2*d*E`` per token at the float32
-    peak."""
-    from repro_torch.models.attention import MLAttention
+    E read them all; the router is float32; zamba2's shared block once,
+    though it runs in every unit), the KV caches written once (prefill)
+    or read up to the current position (decode): K and V of each
+    attention application (zamba2: one a unit), or MLA's latent of
+    ``kv_lora + rope`` per position; the recurrent states (Mamba2's
+    ``[H, N, P]`` and conv window, the mLSTM's ``C``, ``n``, ``m``, the
+    sLSTM's four ``[d]``; ``cache_inventory``) written once (prefill) or
+    read and written once (a decode step); and the logits written once.
+    Operations: 2 per matrix weight per token (zamba2's shared block once
+    a unit), at the float32 peak for float32 weights (the xLSTM gates and
+    the sLSTM's ``wx`` and ``r``) and at the bf16 peak for the rest, the
+    experts' ``2*3*d*d_ff_expert`` per capacity slot computed (``E *
+    cap`` a MoE layer a call), the causal attention's two products over
+    the positions each query sees (MLA's prefill ``nope + rope`` for
+    scores and ``v`` for values per head; its absorbed decode
+    ``H*(2*(kv_lora + rope) + 2*kv_lora)`` per cached position), the
+    recurrent blocks' products (``recurrent_ops``), the head only for the
+    last position (as ``prefill`` computes it); and the router's
+    ``2*d*E`` per token at the float32 peak.  Elementwise work (norms,
+    gates, decays) is not counted."""
     from repro_torch.models.moe import MoEBlock, capacity
     cfg = lm.cfg
     elt = 2 if cfg.param_dtype == "bfloat16" else 4
-    d, L, H, KV, hd = (cfg.d_model, cfg.num_layers, cfg.num_heads,
-                       cfg.num_kv_heads, cfg.head_dim_)
+    d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.head_dim_)
     Vp = lm.vocab_padded
     embed = lm.embed.numel()
     experts = [m for m in lm.modules() if isinstance(m, MoEBlock)]
-    n_mla = sum(isinstance(m, MLAttention) for m in lm.modules())
-    n_gqa = L - n_mla
+    n_gqa, n_mla, state_row = cache_inventory(lm)
     expert_w = {id(getattr(m, w)) for m in experts
                 for w in ("router", "w_gate", "w_up", "w_down")}
     weight_bytes = sum(p.numel() * p.element_size() for p in lm.parameters()
                        if p is not lm.embed)
     if cfg.tie_embeddings:
         weight_bytes += embed * lm.embed.element_size()
-    mats = sum(p.numel() for n, p in lm.named_parameters()
-               if n.startswith("segments.") and p.dim() >= 2
-               and id(p) not in expert_w)
+    applied = [(p, 1) for n, p in lm.named_parameters()
+               if n.startswith("segments.")]
+    if lm.shared is not None:
+        applied += [(p, len(lm.segments["units"]))
+                    for p in lm.shared.parameters()]
+    mats = {f32: sum(p.numel() * k for p, k in applied
+                     if p.dim() >= 2 and id(p) not in expert_w
+                     and (p.dtype == torch.float32) == f32)
+            for f32 in (False, True)}
     head = d * Vp
     if n_mla:
         m = cfg.mla
@@ -2483,21 +2560,26 @@ def lm_bounds(lm, B: int, S: int, new: int) -> dict:
         return bf, f32
 
     pre_bytes = weight_bytes + (B * S * d + cache_elems(S)) * elt \
-        + B * Vp * 4
+        + B * Vp * 4 + B * state_row
     moe_bf, moe_f32 = expert_ops(B * S)
-    pre_ops = 2 * mats * B * S + 2 * H * hd * S * (S + 1) * B * n_gqa \
-        + 2 * head * B + moe_bf
+    rec_bf, rec_f32 = recurrent_ops(lm, B, S)
+    pre_ops = 2 * mats[False] * B * S \
+        + 2 * H * hd * S * (S + 1) * B * n_gqa + 2 * head * B + moe_bf \
+        + rec_bf
+    pre_f32 = moe_f32 + 2 * mats[True] * B * S + rec_f32
     if n_mla:
         pre_ops += H * (dqk + m.v_head_dim) * S * (S + 1) * B * n_mla
-    pre_ops_s = pre_ops / BF16_FLOP_PER_S + moe_f32 / FP32_FLOP_PER_S
+    pre_ops_s = pre_ops / BF16_FLOP_PER_S + pre_f32 / FP32_FLOP_PER_S
     pre = max(pre_bytes / HBM_BYTES_PER_S, pre_ops_s)
     step_bf, step_f32 = expert_ops(B)
+    rec_bf, rec_f32 = recurrent_ops(lm, B, 1)
+    step_f32 += 2 * mats[True] * B + rec_f32
     steps, by_bytes = [], 0
     for pos in range(S, S + new - 1):        # the cache holds pos + 1
         b = weight_bytes + (B * d + cache_elems(pos + 1)) * elt \
-            + B * Vp * 4
-        ops = 2 * (mats + head) * B + 4 * H * hd * (pos + 1) * B * n_gqa \
-            + step_bf
+            + B * Vp * 4 + 2 * B * state_row
+        ops = 2 * (mats[False] + head) * B \
+            + 4 * H * hd * (pos + 1) * B * n_gqa + step_bf + rec_bf
         if n_mla:
             ops += H * (2 * lat + 2 * r) * (pos + 1) * B * n_mla
         ops_s = ops / BF16_FLOP_PER_S + step_f32 / FP32_FLOP_PER_S
@@ -2507,18 +2589,24 @@ def lm_bounds(lm, B: int, S: int, new: int) -> dict:
     all_params = sum(p.numel() for p in lm.parameters())
     return dict(prefill_s=pre, prefill_bound_by="operations"
                 if pre_ops_s > pre_bytes / HBM_BYTES_PER_S else "bytes",
-                prefill_ops=pre_ops, prefill_f32_ops=moe_f32,
+                prefill_ops=pre_ops, prefill_f32_ops=pre_f32,
                 decode_step_s=sum(steps) / len(steps), decode_bound_by=
                 "bytes" if 2 * by_bytes > len(steps) else "operations",
+                state_bytes=B * state_row, kv_caches=n_gqa + n_mla,
                 coarse_decode_step_s=all_bytes / HBM_BYTES_PER_S,
                 coarse_prefill_s=2 * all_params * B * S / BF16_FLOP_PER_S)
 
 
 def lm_serving(cat, query, cfg, dev) -> dict:
-    """(c) the full model serving join-fed prompts with join features."""
+    """(c) the full model serving join-fed prompts with join features.
+    A model whose prefill loops over time (an sLSTM: xLSTM) runs lighter
+    repeats, printed: one greedy run through the engine beside the timed
+    one (not two), no sampled runs, and the busy share's decode steps go
+    on from the timed run's caches instead of a new prefill."""
     from repro_torch.core.gfjs import desummarize_range
     from repro_torch.data import JoinCorpus, TokenBatcher
     from repro_torch.models.model import LM
+    from repro_torch.models.xlstm import SLSTMBlock
     from repro_torch.serve import (RelationalFeatureProvider, ServeConfig,
                                    ServeEngine, lookup_rows)
     from repro_torch.summary import JoinService
@@ -2542,6 +2630,11 @@ def lm_serving(cat, query, cfg, dev) -> dict:
     print(f"  (c) {cfg.name}: {cfg.num_layers} layers, {out['params']} "
           f"parameters, {out['param_bytes']} B in {cfg.param_dtype}, built "
           f"and drawn on the card in {t_build:.3f}s")
+    light = any(isinstance(m, SLSTMBlock) for m in lm.modules())
+    if light:
+        print(f"  (c) {cfg.name}: its prefill loops over time (sLSTM), so "
+              f"cut to one greedy run beside the timed one, no sampled "
+              f"runs, the busy share's steps on the timed run's caches")
     cursor = 0
     table = None            # GROUP BY U1 on device="cpu", the oracle
     for B, S in LM_BATCHES:
@@ -2572,25 +2665,30 @@ def lm_serving(cat, query, cfg, dev) -> dict:
         check((feats > 0).all(), "(c) a prompt's user has no join rows")
         row.update(features=feats[:, 0].tolist(), feature_s=t_feat,
                    users=keys.tolist())
-        # the two greedy runs warm the card up for the timed third
-        greedy = [engine.generate(batch, LM_NEW, seed=s) for s in (1, 2)]
-        got, pre_s, step_s = timed_greedy(lm, batch["tokens"], S + LM_NEW,
-                                          LM_NEW, dev)
-        check(np.array_equal(got, greedy[0])
-              and np.array_equal(greedy[0], greedy[1]),
+        # the greedy runs warm the card up for the timed one
+        greedy = [engine.generate(batch, LM_NEW, seed=s)
+                  for s in ((1,) if light else (1, 2))]
+        room = 2 * LM_PROFILED_STEPS + 1 if light else 0
+        got, pre_s, step_s, run_caches, run_tok = timed_greedy(
+            lm, batch["tokens"], S + LM_NEW + room, LM_NEW, dev)
+        check(all(np.array_equal(got, g) for g in greedy),
               f"(c) {B} x {S}: greedy runs disagree")
         check(greedy[0].shape == (B, LM_NEW) and (greedy[0] >= 0).all()
               and (greedy[0] < cfg.vocab).all(),
               f"(c) {B} x {S}: tokens outside [0, vocab)")
-        hot = ServeEngine(lm, ServeConfig(max_seq=S + LM_NEW,
-                                          temperature=1.0), device=dev)
-        sampled = [hot.generate(batch, LM_NEW, seed=s) for s in (1, 2)]
-        row["sampled_differ"] = not np.array_equal(sampled[0], sampled[1])
-        # a random tied head (embedding std 1) gives logits of std
-        # sqrt(d_model): temperature 1 then draws the argmax, whatever
-        # the seed
-        check(row["sampled_differ"] or cfg.tie_embeddings,
-              f"(c) {B} x {S}: sampled runs with seeds 1 and 2 agree")
+        row["greedy_runs"] = len(greedy) + 1
+        row["sampled_differ"] = None
+        if not light:
+            hot = ServeEngine(lm, ServeConfig(max_seq=S + LM_NEW,
+                                              temperature=1.0), device=dev)
+            sampled = [hot.generate(batch, LM_NEW, seed=s) for s in (1, 2)]
+            row["sampled_differ"] = not np.array_equal(sampled[0],
+                                                       sampled[1])
+            # a random tied head (embedding std 1) gives logits of std
+            # sqrt(d_model): temperature 1 then draws the argmax,
+            # whatever the seed
+            check(row["sampled_differ"] or cfg.tie_embeddings,
+                  f"(c) {B} x {S}: sampled runs with seeds 1 and 2 agree")
         bound = lm_bounds(lm, B, S, LM_NEW)
         row.update(prefill_s=pre_s, decode_step_s=step_s,
                    prefill_tokens_per_s=B * S / pre_s,
@@ -2599,10 +2697,13 @@ def lm_serving(cat, query, cfg, dev) -> dict:
 
         # the card's busy share of a decode loop
         with torch.inference_mode():
-            # room for two loops: timed, then profiled
-            logits, caches = lm.prefill(batch["tokens"],
-                                        S + 2 * LM_PROFILED_STEPS + 1)
-            first = logits[:, -1].argmax(-1, keepdim=True)
+            if light:
+                caches, first = run_caches, run_tok
+            else:
+                # room for two loops: timed, then profiled
+                logits, caches = lm.prefill(batch["tokens"],
+                                            S + 2 * LM_PROFILED_STEPS + 1)
+                first = logits[:, -1].argmax(-1, keepdim=True)
 
             def loop():
                 tok = first
@@ -2624,14 +2725,16 @@ def lm_serving(cat, query, cfg, dev) -> dict:
               f"{bound['decode_step_s'] * 1e3:.3f} ms by "
               f"{bound['decode_bound_by']} (all parameter bytes / HBM: "
               f"{bound['coarse_decode_step_s'] * 1e3:.3f} ms); decode loop "
-              f"{fmt_busy(row['busy'])}; greedy twice equal, sampled seeds "
-              f"1 / 2 {'differ' if row['sampled_differ'] else 'agree'}")
+              f"{fmt_busy(row['busy'])}; greedy "
+              f"{row['greedy_runs']} runs equal, sampled seeds 1 / 2 "
+              + ("not run" if light else "differ" if row["sampled_differ"]
+                 else "agree"))
         print(f"      the decode loop's card time by kernel ("
               f"{LM_PROFILED_STEPS} steps, s): "
               + ", ".join(f"{k} {v[0]:.6f} x{v[1]}" for k, v in
                           row["decode_kernels"].items()))
         out[f"{B}x{S}"] = row
-        del batch, caches, logits
+        del batch, caches, run_caches
     out["peak_device_bytes"] = peak_bytes(dev)
     print(f"  (c) peak device bytes {out['peak_device_bytes']} (parameters "
           f"{out['param_bytes']})")
@@ -2708,19 +2811,27 @@ def dropped_slots(lm, fn) -> tuple:
     return tuple(counts)
 
 
-def moe_card_runs(cfg, dev, seed: int) -> dict:
-    """(b)'s second half: on a card model, the slots its stepwise run
-    drops, and two runs (forward, prefill, decode steps) bit-equal."""
+def card_runs_equal(cfg, dev, seed: int):
+    """(b) two runs (forward, prefill, 7 decode steps) of a card model
+    bit-equal: (the model, its tokens, True)."""
     from repro_torch.models.model import LM
     lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(
         seed))
     toks = seeded_tokens(cfg.vocab, (3, 16), seed, dev)
     with torch.inference_mode():
         runs = [(lm(toks), stepwise_logits(lm, toks, 8)) for _ in range(2)]
-        dropped, routed = dropped_slots(
-            lm, lambda: stepwise_logits(lm, toks, 8))
     same = all(torch.equal(a, b) for a, b in zip(*runs))
     check(same, f"(b) {cfg.name}: two card runs differ")
+    return lm, toks, same
+
+
+def moe_card_runs(cfg, dev, seed: int) -> dict:
+    """(b)'s second half: on a card model, the slots its stepwise run
+    drops, and two runs (forward, prefill, decode steps) bit-equal."""
+    lm, toks, same = card_runs_equal(cfg, dev, seed)
+    with torch.inference_mode():
+        dropped, routed = dropped_slots(
+            lm, lambda: stepwise_logits(lm, toks, 8))
     print(f"  (b) {cfg.name}: two card runs (forward, prefill, 7 decode "
           f"steps) bit-equal; the stepwise run drops {dropped} of "
           f"{routed} routed slots at capacity factor "
@@ -2817,10 +2928,13 @@ def loss_and_grads(lm, batch) -> tuple:
     return loss.detach(), dict(zip((n for n, _ in named), grads))
 
 
-def train_card_against_cpu(cfg, dev, seed: int) -> dict:
+def train_card_against_cpu(cfg, dev, seed: int, label: str = "(a)",
+                           params_tol: float = TRAIN_TOL) -> dict:
     """(a) the loss, every gradient and the parameters after
     TRAIN_PARITY_STEPS AdamW steps, on the card against the CPU from the
-    same weights and batch, each to TRAIN_TOL."""
+    same weights and batch, the loss and gradients to TRAIN_TOL, the
+    parameters to ``params_tol``; ``label`` names the check in the
+    printout (phase 14's is (d))."""
     from repro_torch.models.model import LM
     from repro_torch.train import AdamWConfig, init_train_state, \
         make_train_step
@@ -2840,16 +2954,18 @@ def train_card_against_cpu(cfg, dev, seed: int) -> dict:
         for _ in range(TRAIN_PARITY_STEPS):
             state, _ = step(state, b)
         states.append(state)
-    errs["params"] = max(rel_l2(states[1].params[n], p)
-                         for n, p in states[0].params.items())
-    check(all(e <= TRAIN_TOL for e in errs.values()),
-          f"(a) {cfg.name}: the card differs from the CPU: {errs}")
-    print(f"  (a) {cfg.name} float32 (capacity factor "
+    errs["params"], errs["worst"] = max(
+        (rel_l2(states[1].params[n], p), n)
+        for n, p in states[0].params.items())
+    check(errs["loss"] <= TRAIN_TOL and errs["grads"] <= TRAIN_TOL
+          and errs["params"] <= params_tol,
+          f"{label} {cfg.name}: the card differs from the CPU: {errs}")
+    print(f"  {label} {cfg.name} float32 (capacity factor "
           f"{cfg.moe.capacity_factor if cfg.moe else '-'}): card against "
           f"CPU, |card - cpu| / |cpu| per tensor: loss {errs['loss']:.3g}, "
-          f"gradients <= {errs['grads']:.3g}, parameters after "
-          f"{TRAIN_PARITY_STEPS} AdamW steps <= {errs['params']:.3g} "
-          f"(tol {TRAIN_TOL}); loss {float(l_card):.6f}")
+          f"gradients <= {errs['grads']:.3g} (tol {TRAIN_TOL}), parameters "
+          f"after {TRAIN_PARITY_STEPS} AdamW steps <= {errs['params']:.3g} "
+          f"({errs['worst']}; tol {params_tol}); loss {float(l_card):.6f}")
     return errs
 
 
@@ -3160,6 +3276,107 @@ def run_training(cat, queries, dev, power: str) -> dict:
     return out
 
 
+# -- phase 14: the recurrent families ----------------------------------------
+
+REC_ARCHS = ("zamba2_2p7b", "xlstm_350m")
+# (a) at full width: one unit and a tail of each (zamba2 6 Mamba2 layers
+# a unit, its shared block at the head; xLSTM an mLSTM + sLSTM unit)
+REC_WIDTH_LAYERS = {"zamba2_2p7b": 7, "xlstm_350m": 3}
+# (d) the parameters after two AdamW steps, card against CPU: Adam divides
+# each element by its own gradient's scale, so an element whose gradient
+# is small beside its tensor's (zamba2's smoke A_log, 8 elements, zero at
+# the start) carries that gradient's larger relative rounding error into
+# an O(lr) move.  adam_noise_floor prints what a rounding-sized change of
+# every gradient does on the host alone.  1e-4, as tests/test_torch_train.py
+# holds Adam-stepped parameters between two implementations; the loss and
+# gradients stay at TRAIN_TOL
+REC_PARAMS_TOL = 1e-4
+ADAM_NOISE = 2e-6          # the control's relative change of each gradient
+
+
+def recurrent_configs() -> dict:
+    """Phase 14's configurations per architecture: (a) full width, float32,
+    REC_WIDTH_LAYERS layers; (b) and (d) the smoke variant in float32; (c)
+    the full configuration (bf16, every layer)."""
+    from repro_torch.configs import get_config, get_smoke
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    out = {}
+    for arch in REC_ARCHS:
+        full = get_config(arch)
+        out[arch] = dict(
+            width=full.scaled(num_layers=REC_WIDTH_LAYERS[arch], **f32),
+            smoke=get_smoke(arch).scaled(**f32), full=full,
+            depth=full.num_layers)
+    return out
+
+
+def adam_noise_floor(cfg, seed: int) -> dict:
+    """(d)'s control, on the host: train_card_against_cpu's CPU run, and
+    the same run with every gradient scaled by ``1 + ADAM_NOISE *
+    N(0, 1)``: the largest per-tensor |diff| / |plain| of the parameters
+    after TRAIN_PARITY_STEPS AdamW steps, and its tensor."""
+    from repro_torch.models.model import LM
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+    batch = seeded_batch(cfg.vocab, 4, 32, seed, "cpu")
+    noise = torch.Generator().manual_seed(seed)
+    states = []
+    for scale in (0.0, ADAM_NOISE):
+        lm = LM(cfg, device="cpu",
+                generator=torch.Generator().manual_seed(seed))
+        for p in lm.parameters():
+            p.requires_grad_(True)
+            if scale:
+                p.register_hook(lambda g: g * (1 + scale * torch.randn(
+                    g.shape, generator=noise)))
+        step, state = make_train_step(lm, AdamWConfig(
+            warmup_steps=1, total_steps=10)), init_train_state(lm)
+        for _ in range(TRAIN_PARITY_STEPS):
+            state, _ = step(state, batch)
+        states.append(state)
+    err, name = max((rel_l2(states[1].params[n], p), n)
+                    for n, p in states[0].params.items())
+    print(f"  (d) control, on the host: every gradient scaled by 1 + "
+          f"{ADAM_NOISE} N(0, 1) moves the parameters after "
+          f"{TRAIN_PARITY_STEPS} AdamW steps by <= {err:.3g} ({name})")
+    return dict(params=err, worst=name)
+
+
+def run_recurrent(cat, queries, dev, power: str) -> dict:
+    """Phase 14: the hybrid (zamba2) and ssm (xLSTM) families on the
+    card."""
+    cfgs = recurrent_configs()
+    t0 = time.perf_counter()
+    out: dict = dict(power=power)
+    for i, arch in enumerate(REC_ARCHS):
+        c = cfgs[arch]
+        t1 = time.perf_counter()
+        row = dict(width=lm_width_consistency(c["width"], dev))
+        print(f"  (a) {arch}: {c['width'].num_layers} of {c['depth']} "
+              f"layers (reduced: one unit and a tail)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["smoke"] = lm_card_against_cpu([c["smoke"]], dev)
+        _, _, row["smoke"]["bit_equal"] = card_runs_equal(c["smoke"], dev,
+                                                          60 + i)
+        print(f"  (b) {c['smoke'].name}: two card runs (forward, prefill, 7 "
+              f"decode steps) bit-equal")
+        row["full"] = lm_serving(cat, queries["lastfm_A1"], c["full"], dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["train"] = train_card_against_cpu(
+            c["smoke"], dev, 70 + i, label="(d)", params_tol=REC_PARAMS_TOL)
+        row["train"]["noise_floor"] = adam_noise_floor(c["smoke"], 70 + i)
+        row["seconds"] = time.perf_counter() - t1
+        print(f"  {arch}: {row['seconds']:.1f}s [{power}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = row
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase {out['seconds']:.1f}s [{power}]")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the per-shape measurements "
@@ -3192,7 +3409,7 @@ def main() -> int:
 
 
 def smoke(dev, lastfm_kw, out_path, header) -> list:
-    """Phases 3-13 on ``dev``; returns the kernels line's entries.  (The
+    """Phases 3-14 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
     from repro_torch.kernels.dense_message import dense_message
@@ -3402,6 +3619,24 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     print(f"training path: launches {training['launches']}, numpy "
           f"fallbacks=0")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    expand_many.launches = mul_segsum.launches = 0
+    run_boundaries.launches = 0
+    fb8 = fallbacks.value
+    print("the recurrent families on the card:")
+    recurrent = run_recurrent(cat, queries, dev, header["power"])
+    recurrent["launches"] = {"expand_many": expand_many.launches,
+                             "mul_segsum": mul_segsum.launches,
+                             "run_boundaries": run_boundaries.launches}
+    for name, n in recurrent["launches"].items():
+        check(n > 0, f"the recurrent serving path launched no {name} "
+              f"kernel")
+    check(fallbacks.value == fb8,
+          "numpy fallbacks on the recurrent serving path")
+    print(f"recurrent serving path: launches {recurrent['launches']}, numpy "
+          f"fallbacks=0")
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -3413,7 +3648,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             message_shapes=message_rows, message_launches=message_launches,
             thin_launches=thin_launches, k_sweep=k_sweep, rates=rates,
             service=service, partitioned=partitioned, lm_serving=lm,
-            moe_serving=moe, training=training,
+            moe_serving=moe, training=training, recurrent=recurrent,
             previous_ms={"/".join(map(str, k)): v
                          for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(

@@ -16,7 +16,9 @@ so a ``TrainState`` gives ``.params/<name>``, ``.opt/.step``,
 layers of a stack (``segments.<s>.<i>.<rest>``, the port's LM
 parameters) is stored as the reference stores it: one leaf per stacked
 parameter, the layers on its leading axis, under the reference's name
-(``interop.lm_reference_name``).  Its bytes are the layers' bytes in
+(``interop.lm_reference_name`` under ``prefixes``, the model's
+``reference_prefixes``; without them, the dense, moe and gemma3
+families' names).  Its bytes are the layers' bytes in
 index order, so the layers are written one after another and read back
 as views of one buffer, never stacked in memory.
 
@@ -90,23 +92,25 @@ def _stack(key: str, parts: List[Tuple[Tuple[int, ...], Any]]) -> _Leaf:
                  parts)
 
 
-def _flatten(tree: Any, path: str = "") -> List[_Leaf]:
+def _flatten(tree: Any, path: str = "",
+             prefixes: Optional[Mapping[str, str]] = None) -> List[_Leaf]:
     """The reference's ``tree_flatten_with_path`` keys, in its order."""
     join = (lambda k: f"{path}/{k}") if path else (lambda k: str(k))
     if tree is None:
         return []
     if _is_namedtuple(tree):
         return [leaf for f in tree._fields
-                for leaf in _flatten(getattr(tree, f), join(f".{f}"))]
+                for leaf in _flatten(getattr(tree, f), join(f".{f}"),
+                                     prefixes)]
     if isinstance(tree, (list, tuple)):
         return [leaf for i, x in enumerate(tree)
-                for leaf in _flatten(x, join(i))]
+                for leaf in _flatten(x, join(i), prefixes)]
     if isinstance(tree, Mapping):
         groups: Dict[str, List[Tuple[Tuple[int, ...], Any]]] = {}
         subtrees = {}
         for k, v in tree.items():
             if isinstance(v, (torch.Tensor, np.ndarray)):
-                ref, idx = lm_reference_name(str(k))
+                ref, idx = lm_reference_name(str(k), prefixes)
                 groups.setdefault(ref, []).append((idx, v))
             else:
                 subtrees[str(k)] = v
@@ -117,7 +121,7 @@ def _flatten(tree: Any, path: str = "") -> List[_Leaf]:
         out = []
         for k in sorted(set(groups) | set(subtrees)):
             if k in subtrees:
-                out.extend(_flatten(subtrees[k], join(k)))
+                out.extend(_flatten(subtrees[k], join(k), prefixes))
             elif any(idx == () for idx, _ in groups[k]):
                 if len(groups[k]) > 1:
                     raise ValueError(f"{join(k)}: a leaf and stacked "
@@ -132,7 +136,8 @@ def _flatten(tree: Any, path: str = "") -> List[_Leaf]:
     return [_Leaf(path, _dtype_name(x), list(x.shape), [((), x)])]
 
 
-def _unflatten(like: Any, values: Dict[str, Any], path: str = "") -> Any:
+def _unflatten(like: Any, values: Dict[str, Any], path: str = "",
+               prefixes: Optional[Mapping[str, str]] = None) -> Any:
     """``like``'s structure with each leaf (or stacked layer) taken from
     ``values``, which maps a key to its array, or a stack's key to
     ``{index: layer}``."""
@@ -141,20 +146,20 @@ def _unflatten(like: Any, values: Dict[str, Any], path: str = "") -> Any:
         return None
     if _is_namedtuple(like):
         return type(like)(*(_unflatten(getattr(like, f), values,
-                                       join(f".{f}"))
+                                       join(f".{f}"), prefixes)
                             for f in like._fields))
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(x, values, join(i))
+        return type(like)(_unflatten(x, values, join(i), prefixes)
                           for i, x in enumerate(like))
     if isinstance(like, Mapping):
         out = {}
         for k, v in like.items():
             if isinstance(v, (torch.Tensor, np.ndarray)):
-                ref, idx = lm_reference_name(str(k))
+                ref, idx = lm_reference_name(str(k), prefixes)
                 got = values[join(ref)]
                 out[k] = got[idx] if idx else got
             else:
-                out[k] = _unflatten(v, values, join(str(k)))
+                out[k] = _unflatten(v, values, join(str(k)), prefixes)
         return out
     return values[path]
 
@@ -222,9 +227,10 @@ def _commit(directory: str, step: int, leaves: List[_Leaf],
 
 
 def save_checkpoint(directory: str, step: int, tree: Any,
-                    extra: Optional[Dict] = None) -> str:
+                    extra: Optional[Dict] = None, *,
+                    prefixes: Optional[Mapping[str, str]] = None) -> str:
     """Synchronous atomic save.  Returns the committed path."""
-    return _commit(directory, step, _flatten(tree), extra)
+    return _commit(directory, step, _flatten(tree, prefixes=prefixes), extra)
 
 
 def _read_leaf(path: str, meta: Dict) -> Any:
@@ -247,7 +253,8 @@ def _read_leaf(path: str, meta: Dict) -> Any:
 
 
 def restore_checkpoint(directory: str, tree_like: Any,
-                       step: Optional[int] = None, *, into: bool = False
+                       step: Optional[int] = None, *, into: bool = False,
+                       prefixes: Optional[Mapping[str, str]] = None
                        ) -> Tuple[Any, int, Dict]:
     """Restore the latest (or a specific) checkpoint into ``tree_like``'s
     structure: each tensor leaf comes back as a tensor on that leaf's
@@ -286,9 +293,10 @@ def restore_checkpoint(directory: str, tree_like: Any,
         return leaf.key, out.get((), out)
 
     with ThreadPoolExecutor(IO_THREADS) as pool:
-        values = dict(pool.map(restore, _flatten(tree_like)))
-    return _unflatten(tree_like, values), manifest["step"], \
-        manifest["extra"]
+        values = dict(pool.map(restore, _flatten(tree_like,
+                                                 prefixes=prefixes)))
+    return _unflatten(tree_like, values, prefixes=prefixes), \
+        manifest["step"], manifest["extra"]
 
 
 def available_steps(directory: str) -> List[int]:
@@ -304,11 +312,14 @@ def available_steps(directory: str) -> List[int]:
 
 
 class CheckpointManager:
-    """Async save + retention + resume."""
+    """Async save + retention + resume; LM parameters under the names
+    ``prefixes`` give (a model's ``reference_prefixes``)."""
 
-    def __init__(self, directory: str, *, keep: int = 3) -> None:
+    def __init__(self, directory: str, *, keep: int = 3,
+                 prefixes: Optional[Mapping[str, str]] = None) -> None:
         self.directory = directory
         self.keep = keep
+        self.prefixes = prefixes
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -326,7 +337,7 @@ class CheckpointManager:
         """Copy the state to the host now; write + commit + GC in the
         background."""
         self.wait()
-        host = _to_host(_flatten(tree))
+        host = _to_host(_flatten(tree, prefixes=self.prefixes))
 
         def work():
             try:
@@ -340,14 +351,16 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> str:
         self.wait()
-        path = save_checkpoint(self.directory, step, tree, extra)
+        path = save_checkpoint(self.directory, step, tree, extra,
+                               prefixes=self.prefixes)
         self._gc()
         return path
 
     def restore(self, tree_like: Any, *, step: Optional[int] = None,
                 into: bool = False):
         self.wait()
-        return restore_checkpoint(self.directory, tree_like, step, into=into)
+        return restore_checkpoint(self.directory, tree_like, step, into=into,
+                                  prefixes=self.prefixes)
 
     def latest_step(self) -> Optional[int]:
         steps = available_steps(self.directory)

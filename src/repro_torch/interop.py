@@ -17,7 +17,7 @@ so the same data can go through both packages.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,37 +66,56 @@ def gfjs_from_arrays(
 # -- LM parameters -----------------------------------------------------------
 #
 # The reference keeps an LM's parameters in one flat dict, each stack's
-# stacked on a leading axis; the port keeps one module per layer.  The
-# name map, port state-dict key -> (reference key, index into it):
+# stacked on a leading axis under the name of its block; the port keeps
+# one module per layer.  The name map, port state-dict key -> (reference
+# key, index into it), reads each stack's block name ``P`` from the
+# model's ``reference_prefixes`` (``b`` for a transformer block, ``m``
+# for Mamba2, ``xm`` for an mLSTM layer, empty for a unit, which names
+# its parts itself):
 #
 #   embed | head | final_norm              -> the same name, ()
-#   segments.<s>.<i>.loc.<j>.<rest>         -> <s>.loc.b.<rest>, (i, j)
-#                                              (a GemmaUnit's local layers)
-#   segments.<s>.<i>.g.<rest>               -> <s>.g.<rest>, (i,)
-#                                              (a GemmaUnit's global layer)
-#   segments.<s>.<i>.<rest>                 -> <s>.b.<rest>, (i,)
-#                                              (a stack of blocks)
+#   shared.<rest>                           -> shared.shared.<rest>, ()
+#                                              (zamba2's shared block)
+#   segments.<s>.<i>.<c>.<j>.<rest>         -> <s>.<c>.<P of s.c>.<rest>,
+#                                              (i, j) (a unit's inner
+#                                              stack: gemma3's loc, b;
+#                                              zamba2's mam, m)
+#   segments.<s>.<i>.<rest>                 -> <s>.<P of s>.<rest>, (i,)
 #
 # e.g. ``blocks.b.attn.wq`` [L, d, H, hd] holds layer i's
-# ``segments.blocks.<i>.attn.wq`` [d, H, hd].  bf16 travels as float32
+# ``segments.blocks.<i>.attn.wq`` [d, H, hd], ``units.mam.m.ssm.D``
+# [U, k, H] unit i's layer j's ``segments.units.<i>.mam.<j>.ssm.D`` and
+# ``units.xs.cell.r`` [U, ...] unit i's ``segments.units.<i>.xs.cell.r``.
+# Without the model's prefixes, every stack's is ``b`` and ``units``'s
+# empty: the dense, moe and gemma3 families'.  bf16 travels as float32
 # numpy, which holds every bf16 value exactly.
 
 _SEG = re.compile(r"segments\.(\w+)\.(\d+)\.(.*)")
-_LOC = re.compile(r"loc\.(\d+)\.(.*)")
+_INNER = re.compile(r"(\w+)\.(\d+)\.(.*)")
+DEFAULT_PREFIXES = {"units": ""}
 
 
-def lm_reference_name(key: str) -> Tuple[str, Tuple[int, ...]]:
-    """A port state-dict key -> (reference key, index into it)."""
+def _join(*parts: str) -> str:
+    return ".".join(p for p in parts if p)
+
+
+def lm_reference_name(key: str, prefixes: Optional[Mapping[str, str]] = None
+                      ) -> Tuple[str, Tuple[int, ...]]:
+    """A port state-dict key -> (reference key, index into it), under a
+    model's ``reference_prefixes``."""
+    prefixes = DEFAULT_PREFIXES if prefixes is None else prefixes
     m = _SEG.fullmatch(key)
     if m is None:
-        return key, ()
+        top, _, rest = key.partition(".")
+        return (_join(top, prefixes[top], rest) if top in prefixes
+                else key), ()
     seg, i, rest = m[1], int(m[2]), m[3]
-    loc = _LOC.fullmatch(rest)
-    if loc is not None:
-        return f"{seg}.loc.b.{loc[2]}", (i, int(loc[1]))
-    if rest.startswith("g."):
-        return f"{seg}.{rest}", (i,)
-    return f"{seg}.b.{rest}", (i,)
+    inner = _INNER.fullmatch(rest)
+    if inner is not None:
+        c = inner[1]
+        return (_join(seg, c, prefixes.get(f"{seg}.{c}", "b"), inner[3]),
+                (i, int(inner[2])))
+    return _join(seg, prefixes.get(seg, "b"), rest), (i,)
 
 
 def lm_state_dict_from_arrays(cfg, params: Mapping[str, np.ndarray]
@@ -106,8 +125,9 @@ def lm_state_dict_from_arrays(cfg, params: Mapping[str, np.ndarray]
     from repro_torch.models.model import LM
     out: Dict[str, torch.Tensor] = {}
     used = set()
-    for key, meta in LM(cfg, device="meta").state_dict().items():
-        ref, idx = lm_reference_name(key)
+    lm = LM(cfg, device="meta")
+    for key, meta in lm.state_dict().items():
+        ref, idx = lm_reference_name(key, lm.reference_prefixes)
         if ref not in params:
             raise KeyError(f"{key}: no reference parameter {ref!r}")
         a = np.asarray(params[ref], dtype=np.float32)[idx]
@@ -122,13 +142,15 @@ def lm_state_dict_from_arrays(cfg, params: Mapping[str, np.ndarray]
     return out
 
 
-def lm_arrays_from_state_dict(state: Mapping[str, torch.Tensor]
+def lm_arrays_from_state_dict(state: Mapping[str, torch.Tensor],
+                              prefixes: Optional[Mapping[str, str]] = None
                               ) -> Dict[str, np.ndarray]:
-    """The inverse: the port's state dict -> the reference's flat dict of
-    float32 numpy arrays, stacks on their leading axes."""
+    """The inverse: the port's state dict (of a model whose
+    ``reference_prefixes`` are ``prefixes``) -> the reference's flat dict
+    of float32 numpy arrays, stacks on their leading axes."""
     parts: Dict[str, Dict[Tuple[int, ...], np.ndarray]] = {}
     for key, t in state.items():
-        ref, idx = lm_reference_name(key)
+        ref, idx = lm_reference_name(key, prefixes)
         parts.setdefault(ref, {})[idx] = t.detach().float().cpu().numpy()
     out: Dict[str, np.ndarray] = {}
     for ref, by_idx in parts.items():

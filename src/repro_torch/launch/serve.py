@@ -9,8 +9,8 @@ built on ``--device`` with random weights from a generator seeded 0.
 ``--features`` attaches per-user relational features pulled through a
 ``JoinServer`` in front of a ``JoinService`` on the same device
 (lastfm_A1's path counts per user, over a small ``lastfm_like``
-catalog).  The dense and moe families are ported; the others exit with
-the ROADMAP item they wait for.
+catalog).  The dense, moe, hybrid and ssm families are ported; the
+others (vlm, audio) exit with the ROADMAP item they wait for.
 """
 
 from __future__ import annotations

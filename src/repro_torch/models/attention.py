@@ -32,8 +32,8 @@ from repro_torch.models import flash
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, declare, dtype_of, rms_norm
 
-WAITS = ("is not ported yet (ROADMAP.md queue 1 items 2-5: the hybrid, "
-         "ssm, vlm and audio families; the port has the dense and moe "
+WAITS = ("is not ported yet (ROADMAP.md queue 1 items 4-5: the vlm and "
+         "audio families; the port has the dense, moe, hybrid and ssm "
          "families, their serving and their training)")
 
 

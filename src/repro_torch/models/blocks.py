@@ -6,9 +6,13 @@ so that XLA compiles one block body per group.  Eager PyTorch has no
 compile to keep small, so :class:`ScanStack` is a ``ModuleList`` of n
 blocks applied in a Python loop, and its cache is a list of per-layer
 caches updated in place.  ``repro_torch.interop`` maps the reference's
-stacked ``[n, ...]`` parameters onto the stack's layers.
+stacked ``[n, ...]`` parameters onto the stack's layers, reading each
+stack's ``prefix``: the reference's name of its block (``b``, ``m``,
+``xm``), empty for a unit, which names its parts itself.
 
-``Mamba2Layer`` and ``XLSTMLayer`` are not ported yet.
+Every cache is updated in place, the recurrent states of ``Mamba2Layer``
+and ``XLSTMLayer`` as much as the KV caches: ``prefill`` and ``decode``
+return the cache they were given.
 """
 
 from __future__ import annotations
@@ -19,12 +23,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import (WAITS, GQAttention, KVCache,
-                                         MLAttention)
+from repro_torch.models.attention import GQAttention, KVCache, MLAttention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (activation_fn, declare, dtype_of,
-                                      rms_norm)
+from repro_torch.models.layers import (activation_fn, copy_state, declare,
+                                      dtype_of, rms_norm)
 from repro_torch.models.moe import MoEBlock
+from repro_torch.models.ssm import Mamba2Block, SSMState
+from repro_torch.models.xlstm import MLSTMBlock, SLSTMBlock
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +67,8 @@ class TransformerBlock(nn.Module):
     """Pre-norm block.  Variants: GQA/MLA attention, qk-norm, sliding
     window, softcap, MoE FFN.  The FFN is the attribute ``moe`` or
     ``mlp``, the reference's parameter prefixes."""
+
+    prefix = "b"
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  window: int = 0, use_moe: bool = False) -> None:
@@ -112,13 +119,64 @@ class TransformerBlock(nn.Module):
 
 
 class Mamba2Layer(nn.Module):
-    def __init__(self, cfg: ModelConfig, **_) -> None:
-        raise NotImplementedError(f"Mamba2Layer ({cfg.name}) {WAITS}")
+    """Pre-norm Mamba2 block (the zamba2 backbone layer)."""
+
+    prefix = "m"
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
+        super().__init__()
+        self.cfg = cfg
+        declare(self, "ln", (cfg.d_model,), dtype_of(cfg.param_dtype),
+                device, None)
+        self.ssm = Mamba2Block(cfg, device=device)
+
+    def forward(self, x, positions):
+        return x + self.ssm(rms_norm(x, self.ln, self.cfg.norm_eps))
+
+    def init_cache(self, batch: int, s_max: int) -> SSMState:
+        return self.ssm.init_state(batch)
+
+    def prefill(self, x, positions, cache: SSMState):
+        y, state = self.ssm(rms_norm(x, self.ln, self.cfg.norm_eps),
+                            return_state=True)
+        copy_state(cache, state)
+        return x + y, cache
+
+    def decode(self, x, cache: SSMState):
+        h = rms_norm(x, self.ln, self.cfg.norm_eps)
+        return x + self.ssm.decode(h, cache), cache
 
 
 class XLSTMLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, **_) -> None:
-        raise NotImplementedError(f"XLSTMLayer ({cfg.name}) {WAITS}")
+    """Pre-norm wrapper around an mLSTM (``kind="m"``) or sLSTM (``"s"``)
+    block; its prefill runs the block's forward and keeps the final
+    state."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *,
+                 device: torch.device) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.prefix = "x" + kind
+        declare(self, "ln", (cfg.d_model,), dtype_of(cfg.param_dtype),
+                device, None)
+        self.cell = (MLSTMBlock if kind == "m" else SLSTMBlock)(
+            cfg, device=device)
+
+    def forward(self, x, positions):
+        return x + self.cell(rms_norm(x, self.ln, self.cfg.norm_eps))
+
+    def init_cache(self, batch: int, s_max: int):
+        return self.cell.init_state(batch)
+
+    def prefill(self, x, positions, cache):
+        y, state = self.cell(rms_norm(x, self.ln, self.cfg.norm_eps),
+                             return_state=True)
+        copy_state(cache, state)
+        return x + y, cache
+
+    def decode(self, x, cache):
+        h = rms_norm(x, self.ln, self.cfg.norm_eps)
+        return x + self.cell.decode(h, cache), cache
 
 
 # ---------------------------------------------------------------------------
@@ -128,37 +186,44 @@ class XLSTMLayer(nn.Module):
 class ScanStack(nn.ModuleList):
     """n structurally identical blocks applied in order.
 
-    With ``remat`` (the reference's ``jax.checkpoint`` per stacked block,
-    ``cfg.remat != "none"``), a forward that autograd records keeps only
-    each block's input and recomputes the block in the backward pass;
-    prefill, decode and forwards without gradients run the blocks
-    plainly."""
+    Keyword arguments of ``forward``, ``init_cache``, ``prefill`` and
+    ``decode`` go to every block (a zamba2 unit's shared attention
+    block).  With ``remat`` (the reference's ``jax.checkpoint`` per
+    stacked block, ``cfg.remat != "none"``), a forward that autograd
+    records keeps only each block's input and recomputes the block in the
+    backward pass; prefill, decode and forwards without gradients run the
+    blocks plainly."""
 
     def __init__(self, n: int, make_block: Callable[[], nn.Module], *,
                  remat: bool = False) -> None:
         super().__init__(make_block() for _ in range(n))
         self.remat = remat
 
-    def forward(self, x, positions):
+    @property
+    def prefix(self) -> str:
+        """The reference's name of the stacked block ("" for a unit)."""
+        return self[0].prefix
+
+    def forward(self, x, positions, **kw):
         remat = self.remat and torch.is_grad_enabled() and x.requires_grad
         for block in self:
             if remat:
                 # the blocks draw no random numbers: no RNG state to keep
                 x = checkpoint(block, x, positions, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False, **kw)
             else:
-                x = block(x, positions)
+                x = block(x, positions, **kw)
         return x
 
-    def init_cache(self, batch: int, s_max: int) -> List:
-        return [block.init_cache(batch, s_max) for block in self]
+    def init_cache(self, batch: int, s_max: int, **kw) -> List:
+        return [block.init_cache(batch, s_max, **kw) for block in self]
 
-    def prefill(self, x, positions, caches: List):
+    def prefill(self, x, positions, caches: List, **kw):
         for block, cache in zip(self, caches):
-            x, _ = block.prefill(x, positions, cache)
+            x, _ = block.prefill(x, positions, cache, **kw)
         return x, caches
 
-    def decode(self, x, caches: List):
+    def decode(self, x, caches: List, **kw):
         for block, cache in zip(self, caches):
-            x, _ = block.decode(x, cache)
+            x, _ = block.decode(x, cache, **kw)
         return x, caches

@@ -10,7 +10,8 @@ the reference's (``repro/models/layers.py``).
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import dataclasses
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -24,20 +25,31 @@ def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+ONES = "ones"        # ``declare``'s ``std`` for a parameter of ones
+
+
 def declare(module: nn.Module, name: str, shape: Sequence[int],
             dtype: torch.dtype, device: torch.device,
-            std: Optional[float]) -> None:
+            std: Union[float, None, str]) -> None:
     """Register an uninitialised parameter ``name`` on ``module``, without
     gradients (``train_step.make_train_step`` turns them on).  ``std``
     is its normal initialiser's stddev, ``None`` for zeros (the
-    reference's norm scales); :func:`init_normal` reads it from the
-    module's ``init_stds``, which survives ``to_empty``."""
+    reference's norm scales) or :data:`ONES` for ones (Mamba2's ``D``);
+    :func:`init_normal` reads it from the module's ``init_stds``, which
+    survives ``to_empty``."""
     module.register_parameter(name, nn.Parameter(
         torch.empty(tuple(shape), dtype=dtype, device=device),
         requires_grad=False))
     if "init_stds" not in module.__dict__:
         module.init_stds = {}
     module.init_stds[name] = std
+
+
+def copy_state(dst, src) -> None:
+    """Copy a recurrent state (a dataclass of tensors) into ``dst``'s
+    tensors, in place."""
+    for f in dataclasses.fields(dst):
+        getattr(dst, f.name).copy_(getattr(src, f.name))
 
 
 INIT_CHUNK = 1 << 26        # float32 draws per step: 256 MB at most
@@ -47,14 +59,14 @@ INIT_CHUNK = 1 << 26        # float32 draws per step: 256 MB at most
 def init_normal(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every declared parameter under ``module``: normal draws in
     float32 times its stddev, cast to its dtype (the reference's
-    ``normal_init``), or zeros.  Draws come from ``generator``, which
-    lives on the parameters' device, in ``modules()`` order and
+    ``normal_init``), or zeros, or ones.  Draws come from ``generator``,
+    which lives on the parameters' device, in ``modules()`` order and
     ``INIT_CHUNK`` elements at a time."""
     for mod in module.modules():
         for name, std in mod.__dict__.get("init_stds", {}).items():
             flat = getattr(mod, name).view(-1)
-            if std is None:
-                flat.zero_()
+            if std is None or std == ONES:
+                flat.fill_(0 if std is None else 1)
                 continue
             for lo in range(0, flat.numel(), INIT_CHUNK):
                 part = flat[lo:lo + INIT_CHUNK]

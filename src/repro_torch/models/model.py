@@ -1,5 +1,6 @@
-"""The LM of the dense and moe families: blocks per architecture and the
-entry points the serving engine consumes (``repro/models/model.py``):
+"""The LM of the dense, moe, hybrid and ssm families: blocks per
+architecture and the entry points the serving engine consumes
+(``repro/models/model.py``):
 
 * ``LM(cfg, device=, generator=)`` builds and initialises on ``device``;
 * ``forward(tokens)``                 -> logits [B, S, V]
@@ -13,9 +14,13 @@ Segments, as in the reference:
   gemma3 : [unit(k local + 1 global) x U, local x tail]
   moe    : [dense0: block x first_dense_layers, moe: MoE block x rest]
            (MLA attention where the config has it: deepseek-v2)
+  hybrid : [unit(shared attention + k Mamba2) x U, Mamba2 x tail]
+           (zamba2: one attention block, ``LM.shared``, applied at the
+           head of every unit, each unit with its own KV cache for it)
+  ssm    : [unit(mLSTM + sLSTM) x U, mLSTM x tail]   (xlstm)
 
-The ``vlm``, ``hybrid``, ``ssm`` and ``audio`` families raise
-``NotImplementedError`` (ROADMAP.md queue 1 items 2-5).
+The ``vlm`` and ``audio`` families raise ``NotImplementedError``
+(ROADMAP.md queue 1 items 4-5).
 
 Training (``repro_torch.train``) turns the parameters' gradients on;
 with ``cfg.remat != "none"`` each stack recomputes its blocks in the
@@ -39,12 +44,13 @@ import torch.nn.functional as F
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.attention import WAITS
-from repro_torch.models.blocks import ScanStack, TransformerBlock
+from repro_torch.models.blocks import (Mamba2Layer, ScanStack,
+                                      TransformerBlock, XLSTMLayer)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, declare, dtype_of,
                                        init_normal, rms_norm)
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def model_device(device: Union[str, torch.device]) -> torch.device:
@@ -55,6 +61,8 @@ def model_device(device: Union[str, torch.device]) -> torch.device:
 
 class GemmaUnit(nn.Module):
     """k sliding-window layers followed by one global-attention layer."""
+
+    prefix = ""
 
     def __init__(self, cfg: ModelConfig, k: int, *,
                  device: torch.device) -> None:
@@ -84,6 +92,69 @@ class GemmaUnit(nn.Module):
         return x, cache
 
 
+class ZambaUnit(nn.Module):
+    """The shared attention block, passed in at every call (the LM owns
+    it; the unit does not register it), then k Mamba2 layers.  The unit's
+    cache is its own KV cache for the shared block and the layers'
+    states."""
+
+    prefix = ""
+
+    def __init__(self, cfg: ModelConfig, k: int, *,
+                 device: torch.device) -> None:
+        super().__init__()
+        self.mam = ScanStack(k, lambda: Mamba2Layer(cfg, device=device),
+                             remat=cfg.remat != "none")
+
+    def forward(self, x, positions, *, shared: TransformerBlock):
+        return self.mam(shared(x, positions), positions)
+
+    def init_cache(self, batch: int, s_max: int, *,
+                   shared: TransformerBlock):
+        return (shared.init_cache(batch, s_max),
+                self.mam.init_cache(batch, s_max))
+
+    def prefill(self, x, positions, cache, *, shared: TransformerBlock):
+        sc, mc = cache
+        x, _ = shared.prefill(x, positions, sc)
+        x, _ = self.mam.prefill(x, positions, mc)
+        return x, cache
+
+    def decode(self, x, cache, *, shared: TransformerBlock):
+        sc, mc = cache
+        x, _ = shared.decode(x, sc)
+        x, _ = self.mam.decode(x, mc)
+        return x, cache
+
+
+class XLSTMUnit(nn.Module):
+    """An mLSTM layer then an sLSTM layer (xLSTM[1:1])."""
+
+    prefix = ""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
+        super().__init__()
+        self.xm = XLSTMLayer(cfg, "m", device=device)
+        self.xs = XLSTMLayer(cfg, "s", device=device)
+
+    def forward(self, x, positions):
+        return self.xs(self.xm(x, positions), positions)
+
+    def init_cache(self, batch: int, s_max: int):
+        return (self.xm.init_cache(batch, s_max),
+                self.xs.init_cache(batch, s_max))
+
+    def prefill(self, x, positions, cache):
+        x, _ = self.xm.prefill(x, positions, cache[0])
+        x, _ = self.xs.prefill(x, positions, cache[1])
+        return x, cache
+
+    def decode(self, x, cache):
+        x, _ = self.xm.decode(x, cache[0])
+        x, _ = self.xs.decode(x, cache[1])
+        return x, cache
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *,
                  device: Union[str, torch.device] = "cuda",
@@ -109,34 +180,36 @@ class LM(nn.Module):
         declare(self, "final_norm", (d,), dt, dev, None)
 
         L = cfg.num_layers
-        remat = cfg.remat != "none"
+        # zamba2's shared attention block: one set of parameters
+        self.shared = TransformerBlock(cfg, device=dev) \
+            if cfg.family == "hybrid" else None
         self.segments = nn.ModuleDict()
-        if cfg.family == "moe":
+
+        def stack(name: str, n: int, make) -> None:
+            if n:
+                self.segments[name] = ScanStack(
+                    n, make, remat=cfg.remat != "none")
+
+        if cfg.family == "hybrid":
+            k = cfg.ssm.attn_every
+            stack("units", L // k, lambda: ZambaUnit(cfg, k, device=dev))
+            stack("tail", L % k, lambda: Mamba2Layer(cfg, device=dev))
+        elif cfg.family == "ssm":
+            stack("units", L // 2, lambda: XLSTMUnit(cfg, device=dev))
+            stack("tail", L % 2, lambda: XLSTMLayer(cfg, "m", device=dev))
+        elif cfg.family == "moe":
             nd = cfg.moe.first_dense_layers
-            if nd:
-                self.segments["dense0"] = ScanStack(
-                    nd, lambda: TransformerBlock(cfg, device=dev),
-                    remat=remat)
-            if L - nd:
-                self.segments["moe"] = ScanStack(
-                    L - nd, lambda: TransformerBlock(cfg, device=dev,
-                                                     use_moe=True),
-                    remat=remat)
+            stack("dense0", nd, lambda: TransformerBlock(cfg, device=dev))
+            stack("moe", L - nd, lambda: TransformerBlock(
+                cfg, device=dev, use_moe=True))
         elif cfg.local_global_pattern:
             k = cfg.local_global_pattern
-            units, tail = L // (k + 1), L % (k + 1)
-            if units:
-                self.segments["units"] = ScanStack(
-                    units, lambda: GemmaUnit(cfg, k, device=dev),
-                    remat=remat)
-            if tail:
-                self.segments["tail"] = ScanStack(
-                    tail, lambda: TransformerBlock(
-                        cfg, device=dev, window=cfg.sliding_window),
-                    remat=remat)
+            stack("units", L // (k + 1), lambda: GemmaUnit(cfg, k,
+                                                           device=dev))
+            stack("tail", L % (k + 1), lambda: TransformerBlock(
+                cfg, device=dev, window=cfg.sliding_window))
         else:
-            self.segments["blocks"] = ScanStack(
-                L, lambda: TransformerBlock(cfg, device=dev), remat=remat)
+            stack("blocks", L, lambda: TransformerBlock(cfg, device=dev))
         if dev.type != "meta":
             self.init_weights(generator if generator is not None
                               else torch.Generator(dev).manual_seed(0))
@@ -148,6 +221,22 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def reference_prefixes(self) -> Dict[str, str]:
+        """Each stack's block name in the reference's parameter names, by
+        its path (``tail``; a unit's inner stack as ``units.mam``), and
+        ``shared`` for zamba2's shared block: the names
+        ``interop.lm_reference_name`` maps this model's parameters by."""
+        out = {}
+        if self.shared is not None:
+            out["shared"] = "shared"
+        for name, seg in self.segments.items():
+            out[name] = seg.prefix
+            for child, sub in seg[0].named_children():
+                if isinstance(sub, ScanStack):
+                    out[f"{name}.{child}"] = sub.prefix
+        return out
 
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
@@ -172,12 +261,18 @@ class LM(nn.Module):
             logits = torch.where(real, logits, -1e30)
         return logits
 
+    def _kw(self, name: str) -> Dict[str, nn.Module]:
+        """The keyword arguments of segment ``name``'s blocks: zamba2's
+        units get the shared attention block."""
+        return {"shared": self.shared} \
+            if self.shared is not None and name == "units" else {}
+
     # -- entry points ---------------------------------------------------------
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self._embed(tokens)
         positions = self._positions(x)
-        for seg in self.segments.values():
-            x = seg(x, positions)
+        for name, seg in self.segments.items():
+            x = seg(x, positions, **self._kw(name))
         return self._head(x)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -186,22 +281,22 @@ class LM(nn.Module):
 
     # -- serving --------------------------------------------------------------
     def init_caches(self, batch: int, s_max: int) -> List:
-        return [seg.init_cache(batch, s_max)
-                for seg in self.segments.values()]
+        return [seg.init_cache(batch, s_max, **self._kw(name))
+                for name, seg in self.segments.items()]
 
     def prefill(self, tokens: torch.Tensor,
                 s_max: int) -> Tuple[torch.Tensor, List]:
         x = self._embed(tokens)
         positions = self._positions(x)
         caches = self.init_caches(x.shape[0], s_max)
-        for seg, cache in zip(self.segments.values(), caches):
-            x, _ = seg.prefill(x, positions, cache)
+        for (name, seg), cache in zip(self.segments.items(), caches):
+            x, _ = seg.prefill(x, positions, cache, **self._kw(name))
         return self._head(x[:, -1:]), caches
 
     def decode_step(self, tokens: torch.Tensor,
                     caches: List) -> Tuple[torch.Tensor, List]:
         """tokens: [B, 1] -> (logits [B, 1, V], the caches, updated)."""
         x = self._embed(tokens)
-        for seg, cache in zip(self.segments.values(), caches):
-            x, _ = seg.decode(x, cache)
+        for (name, seg), cache in zip(self.segments.items(), caches):
+            x, _ = seg.decode(x, cache, **self._kw(name))
         return self._head(x), caches

@@ -128,6 +128,7 @@ class Trainer:
         cfg = self.cfg
         start_step = 0
         state = self._init_state(seed)
+        self.ckpt.prefixes = self.lm.reference_prefixes
         step_fn = make_train_step(self.lm, self.opt_cfg,
                                   microbatches=cfg.microbatches)
         if self.ckpt.latest_step() is not None:

@@ -840,9 +840,10 @@ def _cpu_and_card_lm(arch, dev, **extra):
 
 
 @pytest.mark.parametrize("arch", ["qwen3_8b", "gemma3_4b",
-                                  "granite_moe_1b_a400m", "deepseek_v2_236b"])
+                                  "granite_moe_1b_a400m", "deepseek_v2_236b",
+                                  "zamba2_2p7b", "xlstm_350m"])
 def test_lm_on_the_card_matches_the_cpu(arch):
-    """Smoke phases 11 and 12 (b) at smoke size: forward, prefill and
+    """Smoke phases 11, 12 and 14 (b) at smoke size: forward, prefill and
     decode logits to 1e-4, and 8 greedy tokens equal (the moe family at
     its configs' capacity, drops included)."""
     from repro_torch.serve import ServeConfig, ServeEngine
@@ -1060,6 +1061,63 @@ def test_moe_lm_on_the_card_is_deterministic(arch, dtype):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# -- the recurrent families (zamba2, xlstm) ----------------------------------
+
+@pytest.mark.parametrize("name", ["Mamba2Block", "MLSTMBlock", "SLSTMBlock"])
+def test_recurrent_block_on_the_card_matches_the_cpu(name):
+    """Forward (the chunked SSD in three chunks, the mLSTM in four), its
+    final state and four decode steps, card against CPU to 1e-4."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import ssm, xlstm
+    dev = _card()
+    arch = "zamba2_2p7b" if name == "Mamba2Block" else "xlstm_350m"
+    cfg = get_smoke(arch).scaled(param_dtype="float32",
+                                 compute_dtype="float32")
+    cls = getattr(ssm if name == "Mamba2Block" else xlstm, name)
+    cpu, card = _layer_on_cpu_and_card(cls, cfg, dev, 3)
+    kw = {"chunk": 8} if name == "MLSTMBlock" else {}
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 52, cfg.d_model)).astype(np.float32) * 0.5)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    with torch.inference_mode():
+        want, s_cpu = cpu(x[:, :48], return_state=True, **kw)
+        got, s_card = card(x[:, :48].to(dev), return_state=True, **kw)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+        for t in range(48, 52):
+            torch.testing.assert_close(
+                card.decode(x[:, t:t + 1].to(dev), s_card).cpu(),
+                cpu.decode(x[:, t:t + 1], s_cpu), **tol)
+    for f in vars(s_cpu):
+        torch.testing.assert_close(getattr(s_card, f).cpu(),
+                                   getattr(s_cpu, f), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "xlstm_350m"])
+def test_recurrent_lm_on_the_card_is_deterministic(arch, dtype):
+    """Smoke phase 14 (b): two card forwards, and two prefill + decode
+    runs, bit-equal."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import LM
+    dev = _card()
+    cfg = get_smoke(arch).scaled(param_dtype=dtype, compute_dtype=dtype)
+    lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(5))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (4, 40))).to(dev)
+
+    def run():
+        logits, caches = lm.prefill(toks[:, :32], 40)
+        out = [lm(toks[:, :32]), logits]
+        for t in range(32, 40):
+            logits, caches = lm.decode_step(toks[:, t:t + 1], caches)
+            out.append(logits)
+        return out
+
+    with torch.inference_mode():
+        a, b = run(), run()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_granite_is_built_on_the_card_at_full_size():
     """granite-moe-1b-a400m at full width and depth on the card: every
     parameter there, the count the config gives (vocab padded to 256),
@@ -1098,11 +1156,13 @@ def _train_batch(vocab, dev, seed=0, B=4, S=32):
             for k in ("tokens", "labels")}
 
 
-@pytest.mark.parametrize("arch", ["qwen3_8b", "granite_moe_1b_a400m"])
+@pytest.mark.parametrize("arch", ["qwen3_8b", "granite_moe_1b_a400m",
+                                  "zamba2_2p7b", "xlstm_350m"])
 def test_training_on_the_card_matches_the_cpu(arch):
-    """Smoke phase 13 (a): the loss, every gradient and the parameters
-    after two AdamW steps on the card against the CPU, each to 1e-5 in the
-    L2 norm (float32; granite drop-free, capacity factor 64)."""
+    """Smoke phases 13 (a) and 14 (d): the loss, every gradient and the
+    parameters after two AdamW steps on the card against the CPU, each to
+    1e-5 in the L2 norm (float32; granite drop-free, capacity factor
+    64)."""
     from repro_torch.configs import get_smoke
     from repro_torch.train import (AdamWConfig, init_train_state,
                                    make_train_step)

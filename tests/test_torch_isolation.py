@@ -7,7 +7,8 @@ through a ``JoinServer`` in front of a ``JoinService``, and runs a
 ``partitions=2`` build, then builds a smoke ``LM``, takes one
 ``TokenBatcher`` batch from a ``JoinCorpus`` over Figure 1, and serves it
 greedily through a ``ServeEngine`` with features from a
-``RelationalFeatureProvider`` over a Figure-1 ``JoinService``, then
+``RelationalFeatureProvider`` over a Figure-1 ``JoinService`` (and the
+prompts through smoke zamba2 and xlstm models), then
 trains it one ``Trainer`` step with a checkpoint (``ml_dtypes`` blocked
 too); a source scan finds no jax, ``repro`` or ``ml_dtypes`` import under
 ``src/repro_torch/`` (the serving, partitioning, model, data, training
@@ -82,6 +83,12 @@ batch = TokenBatcher(corpus, 2, 8, device="cpu").next_batch()
 batch = engine.attach_features(batch, np.asarray(["a3", "a0"]))
 out = engine.generate(batch, max_new=4)
 assert out.shape == (2, 4) and ((out >= 0) & (out < lm.cfg.vocab)).all()
+for arch in ("zamba2_2p7b", "xlstm_350m"):
+    rec = LM(get_smoke(arch), device="cpu",
+             generator=torch.Generator().manual_seed(0))
+    got = ServeEngine(rec, ServeConfig(max_seq=12), device="cpu").generate(
+        {"tokens": batch["tokens"]}, max_new=2)
+    assert got.shape == (2, 2) and (got < rec.cfg.vocab).all()
 import os, tempfile
 from repro_torch.train.optim import AdamWConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -129,7 +136,8 @@ def test_source_imports_neither_jax_nor_reference():
             "dist/actions.py", "dist/__init__.py", "ft/straggler.py",
             "models/config.py", "models/layers.py", "models/flash.py",
             "models/attention.py", "models/blocks.py", "models/model.py",
-            "models/moe.py", "core/oracle.py", "core/baselines.py",
+            "models/moe.py", "models/ssm.py", "models/xlstm.py",
+            "core/oracle.py", "core/baselines.py",
             "configs/__init__.py", "configs/qwen3_8b.py",
             "serve/engine.py", "data/pipeline.py", "launch/serve.py",
             "interop.py", "train/__init__.py", "train/optim.py",
@@ -147,6 +155,7 @@ def test_source_imports_neither_jax_nor_reference():
                                    "maybe_dense_message", "join_service",
                                    "partition_histogram",
                                    "partitioned_facade", "lm", "moe_lm",
+                                   "hybrid_lm", "ssm_lm",
                                    "serve_engine", "join_corpus",
                                    "token_batcher", "trainer"])
 def test_cuda_without_a_card_raises(monkeypatch, entry):
@@ -176,6 +185,8 @@ def test_cuda_without_a_card_raises(monkeypatch, entry):
         "partition_histogram": lambda: partition_histogram(ones, 2),
         "lm": lambda: LM(get_smoke("qwen3_8b")),
         "moe_lm": lambda: LM(get_smoke("deepseek_v2_236b")),
+        "hybrid_lm": lambda: LM(get_smoke("zamba2_2p7b")),
+        "ssm_lm": lambda: LM(get_smoke("xlstm_350m")),
         "serve_engine": lambda: ServeEngine(
             LM(get_smoke("qwen3_8b"), device="cpu"), ServeConfig(8)),
         "join_corpus": lambda: JoinCorpus.build(cat, q, vocab=256),

@@ -240,8 +240,9 @@ def test_attach_features_returns_a_device_tensor(services):
                                   plain.generate(batch, 4))
 
 
-def test_launch_serve_cli_serves_a_batch_on_the_cpu(capsys):
-    launch_serve.main(["--arch", "qwen3_8b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["qwen3_8b", "zamba2_2p7b", "xlstm_350m"])
+def test_launch_serve_cli_serves_a_batch_on_the_cpu(arch, capsys):
+    launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--features", "--batch", "2", "--prompt-len", "8",
                        "--max-new", "3"])
     out = capsys.readouterr().out
@@ -250,6 +251,6 @@ def test_launch_serve_cli_serves_a_batch_on_the_cpu(capsys):
             and ":" in ln and "features" not in ln]
     assert len(rows) == 2 and all(len(eval(r.split(": ", 1)[1])) == 3
                                   for r in rows)
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 items 2-5"):
-        launch_serve.main(["--arch", "zamba2_2p7b", "--smoke", "--device",
-                           "cpu"])
+    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 items 4-5"):
+        launch_serve.main(["--arch", "llama32_vision_11b", "--smoke",
+                           "--device", "cpu"])

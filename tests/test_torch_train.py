@@ -389,8 +389,9 @@ def test_data_parallel_modes_wait_for_queue_item_6():
         compressed_psum(torch.zeros(3), "data")
 
 
-def test_launch_train_cli_on_the_cpu(tmp_path, capsys):
-    launch_train.main(["--arch", "qwen3_8b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["qwen3_8b", "zamba2_2p7b", "xlstm_350m"])
+def test_launch_train_cli_on_the_cpu(arch, tmp_path, capsys):
+    launch_train.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--steps", "4", "--batch", "2", "--seq", "16",
                        "--checkpoint-dir", str(tmp_path / "c"),
                        "--checkpoint-every", "2"])
@@ -400,6 +401,6 @@ def test_launch_train_cli_on_the_cpu(tmp_path, capsys):
     assert all(np.isfinite(float(r[3])) for r in rows)
     assert sorted(p.name for p in (tmp_path / "c").iterdir()) == [
         "step_0000000002", "step_0000000004"]
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 items 2-5"):
-        launch_train.main(["--arch", "zamba2_2p7b", "--smoke", "--device",
-                           "cpu"])
+    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 items 4-5"):
+        launch_train.main(["--arch", "llama32_vision_11b", "--smoke",
+                           "--device", "cpu"])
