@@ -148,7 +148,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    greedy run beside the timed one and no sampled runs, printed); (d)
    both smoke models' loss, gradients and parameters after two AdamW
    steps, card against CPU, as phase 13 (a);
-15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+15. the vlm and audio families on the card, llama-3.2-vision-11b (units
+   of 4 self-attention layers and one image cross-attention layer) and
+   hubert-xlarge (48 non-causal blocks over 512-wide frame embeddings):
+   (a) Llama-3.2-Vision at full width in float32, 6 of its 40 layers (one
+   unit and a tail layer), prefill + stepwise decode logits with seeded
+   image context ``[2, 1601, 1280]`` equal the teacher-forced
+   ``forward``'s, as phase 11 (a); HuBERT at full width in float32, 2 of
+   its 48 layers, the card's logits against the CPU's at 2 x 256 frames
+   (the dense path) and 1 x 3,072 (the online one), and another last
+   frame moves position 0's logits (no causal mask); (b) both smoke
+   models on the card against the CPU (the vlm's greedy tokens equal) and
+   two card runs bit-equal; (c) both at full size in bf16:
+   Llama-3.2-Vision serving phase 11's join-fed batches with seeded image
+   context per request (``lm_bounds`` counts the cross layers' image K/V,
+   recomputed at every decode step, and their products), HuBERT encoding
+   seeded frames of the same shapes through ``make_serve_step(mode=
+   "prefill")`` with each request's features from the same provider (two
+   encodes bit-equal; encode seconds beside the bound of a non-causal
+   encoder); (d) both smoke models' loss, gradients and parameters after
+   two AdamW steps, card against CPU, as phase 13 (a);
+16. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
 phase 5 (``expand_many``: the main path), zeroed again just before phase 6
@@ -159,8 +179,9 @@ path), again around phase 7's path (``expand_gather``,
 three: the partitioned path), around phase 11 (the same three: the
 LM serving path's corpus build and features), around phase 12 (the
 same three: the moe serving path's), around phase 13
-(``expand_many``: the training path's corpus build) and around phase 14
-(the three of phase 11: the recurrent families' serving path).  ``--out``
+(``expand_many``: the training path's corpus build), around phase 14
+(the three of phase 11: the recurrent families' serving path) and around
+phase 15 (the same three: the vlm and audio families').  ``--out``
 writes the per-shape measurements as JSON.
 """
 
@@ -2303,6 +2324,26 @@ def seeded_tokens(vocab: int, shape, seed: int, dev) -> torch.Tensor:
         0, vocab, shape)).to(dev)
 
 
+def media_kw(cfg, B: int, seed: int, dev) -> dict:
+    """The model's inputs beside its tokens: the vlm family's image
+    context, float32 [B, num_image_tokens, vision_dim] from
+    ``default_rng(seed)`` (the reference's stub patch embeddings), as
+    ``vision=``; nothing for the other families."""
+    if cfg.family != "vlm":
+        return {}
+    v = cfg.vlm
+    return {"vision": torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(B, v.num_image_tokens, v.vision_dim)).astype(
+            np.float32)).to(dev)}
+
+
+def seeded_frames(B: int, S: int, seed: int, dev) -> torch.Tensor:
+    """The audio family's input: float32 [B, S, 512] frame embeddings
+    from ``default_rng(seed)`` (the reference's stub frontend)."""
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(B, S, 512)).astype(np.float32)).to(dev)
+
+
 def set_kv_layout(lm, layout: str) -> None:
     from repro_torch.models.attention import GQAttention
     for m in lm.modules():
@@ -2310,14 +2351,15 @@ def set_kv_layout(lm, layout: str) -> None:
             m.kv_layout = layout
 
 
-def stepwise_logits(lm, toks, k: int) -> torch.Tensor:
+def stepwise_logits(lm, toks, k: int, **kw) -> torch.Tensor:
     """prefill toks[:, :k], then decode the rest one token at a time:
-    the logits at positions k-1 .. S-2, [B, S-k, V]."""
+    the logits at positions k-1 .. S-2, [B, S-k, V].  ``kw`` (the vlm's
+    ``vision``) goes to the prefill and to every step."""
     S = toks.shape[1]
-    logits, caches = lm.prefill(toks[:, :k], S)
+    logits, caches = lm.prefill(toks[:, :k], S, **kw)
     out = [logits[:, 0]]
     for t in range(k, S - 1):
-        logits, caches = lm.decode_step(toks[:, t:t + 1], caches)
+        logits, caches = lm.decode_step(toks[:, t:t + 1], caches, **kw)
         out.append(logits[:, 0])
     return torch.stack(out, 1)
 
@@ -2331,13 +2373,14 @@ def lm_width_consistency(cfg, dev, *, logit_scaled: bool = False) -> dict:
     from repro_torch.models.model import LM
     lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(1))
     toks = seeded_tokens(cfg.vocab, (2, 16), 11, dev)
+    kw = media_kw(cfg, 2, 12, dev)
     out: dict = {}
     runs = {}
     with torch.inference_mode():
         for layout in ("grouped", "repeat"):
             set_kv_layout(lm, layout)
-            full = lm(toks)
-            steps = stepwise_logits(lm, toks, 8)
+            full = lm(toks, **kw)
+            steps = stepwise_logits(lm, toks, 8, **kw)
             want = full[:, 7:15]
             err = float((steps - want).abs().max())
             ok = torch.allclose(steps, want, atol=LM_WIDTH_TOL,
@@ -2361,6 +2404,9 @@ def lm_width_consistency(cfg, dev, *, logit_scaled: bool = False) -> dict:
     out["param_bytes"] = lm.param_bytes()
     print(f"  (a) {cfg.name} at full width, {cfg.num_layers} layers, "
           f"float32 ({out['param_bytes']} B): prefill + 7 decode steps "
+          + ("(seeded image context [2, "
+             f"{cfg.vlm.num_image_tokens}, {cfg.vlm.vision_dim}] at each) "
+             if kw else "") +
           f"against the forward, max |diff| grouped "
           f"{out['decode_err_grouped']:.3g} / repeat "
           f"{out['decode_err_repeat']:.3g} (tol {LM_WIDTH_TOL}, |logits| <= "
@@ -2381,11 +2427,13 @@ def lm_card_against_cpu(cfgs, dev) -> dict:
         card = LM(cfg, device=dev)
         card.load_state_dict(cpu.state_dict())
         toks = seeded_tokens(cfg.vocab, (3, 16), 21 + i, "cpu")
+        kw = media_kw(cfg, 3, 121 + i, "cpu")
+        card_kw = {k: v.to(dev) for k, v in kw.items()}
         with torch.inference_mode():
-            want = cpu(toks)
-            got = card(toks.to(dev)).cpu()
-            want_s = stepwise_logits(cpu, toks, 8)
-            got_s = stepwise_logits(card, toks.to(dev), 8).cpu()
+            want = cpu(toks, **kw)
+            got = card(toks.to(dev), **card_kw).cpu()
+            want_s = stepwise_logits(cpu, toks, 8, **kw)
+            got_s = stepwise_logits(card, toks.to(dev), 8, **card_kw).cpu()
         err = max(float((got - want).abs().max()),
                   float((got_s - want_s).abs().max()))
         check(torch.allclose(got, want, atol=LM_CARD_TOL, rtol=LM_CARD_TOL)
@@ -2395,8 +2443,9 @@ def lm_card_against_cpu(cfgs, dev) -> dict:
               f"{err}")
         scfg = ServeConfig(max_seq=24)
         a = ServeEngine(cpu, scfg, device="cpu").generate(
-            {"tokens": toks}, 8)
-        b = ServeEngine(card, scfg, device=dev).generate({"tokens": toks}, 8)
+            {"tokens": toks, **kw}, 8)
+        b = ServeEngine(card, scfg, device=dev).generate(
+            {"tokens": toks, **kw}, 8)
         check(np.array_equal(a, b), f"(b) {cfg.name}: greedy tokens differ "
               f"between the card and the CPU")
         out[cfg.name] = dict(max_err=err, tokens=b.tolist())
@@ -2406,20 +2455,21 @@ def lm_card_against_cpu(cfgs, dev) -> dict:
     return out
 
 
-def timed_greedy(lm, tokens, s_max: int, new: int, dev):
+def timed_greedy(lm, tokens, s_max: int, new: int, dev, **kw):
     """Greedy prefill + decode with the host clock around each part:
     (tokens [B, new], prefill s, decode s per step, the caches and the
-    last token, to go on decoding from)."""
+    last token, to go on decoding from).  ``kw``: the vlm's ``vision``,
+    to the prefill and every step."""
     with torch.inference_mode():
         sync(dev)
         t0 = time.perf_counter()
-        logits, caches = lm.prefill(tokens, s_max)
+        logits, caches = lm.prefill(tokens, s_max, **kw)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         sync(dev)
         t1 = time.perf_counter()
         out = [tok]
         for _ in range(new - 1):
-            logits, caches = lm.decode_step(tok, caches)
+            logits, caches = lm.decode_step(tok, caches, **kw)
             tok = logits[:, -1].argmax(-1, keepdim=True)
             out.append(tok)
         sync(dev)
@@ -2491,54 +2541,94 @@ def recurrent_ops(lm, B: int, S: int) -> tuple:
 
 def lm_bounds(lm, B: int, S: int, new: int) -> dict:
     """The least time the card could take for this run's prefill and its
-    decode steps.  Bytes: each weight read once at its own width (the
-    embedding table: only the rows looked up, unless the head reads it
-    whole; every expert of a MoE layer, since the products batched over
-    E read them all; the router is float32; zamba2's shared block once,
-    though it runs in every unit), the KV caches written once (prefill)
-    or read up to the current position (decode): K and V of each
-    attention application (zamba2: one a unit), or MLA's latent of
+    decode steps, or for an encoder (HuBERT) its encode: ``forward`` over
+    ``[B, S]`` frames (``encode_s``; no cache, no decode).  Bytes: each
+    weight read once at its own width (the embedding table: only the rows
+    looked up, unless the head reads it whole; every expert of a MoE
+    layer, since the products batched over E read them all; the router is
+    float32; zamba2's shared block once, though it runs in every unit),
+    the KV caches written once (prefill) or read up to the current
+    position (decode): K and V of each attention application (zamba2: one
+    a unit; the vlm's cross layers have none), or MLA's latent of
     ``kv_lora + rope`` per position; the recurrent states (Mamba2's
     ``[H, N, P]`` and conv window, the mLSTM's ``C``, ``n``, ``m``, the
     sLSTM's four ``[d]``; ``cache_inventory``) written once (prefill) or
-    read and written once (a decode step); and the logits written once.
-    Operations: 2 per matrix weight per token (zamba2's shared block once
-    a unit), at the float32 peak for float32 weights (the xLSTM gates and
-    the sLSTM's ``wx`` and ``r``) and at the bf16 peak for the rest, the
+    read and written once (a decode step); the vlm's float32 image context
+    ``[B, T, vision_dim]`` read once a call (decode steps included), the
+    encoder's float32 frames ``[B, S, 512]`` read once; and the logits
+    written once (an encode's at every position).  Operations: 2 per
+    matrix weight per token (zamba2's shared block once a unit; the
+    audio family's ``frontend_proj`` per frame), except a cross layer's
+    ``wk`` and ``wv``, 2 per weight per image token at every call (``T``
+    of them a request, recomputed at each decode step, as the reference
+    does); at the float32 peak for float32 weights (the xLSTM gates and
+    the sLSTM's ``wx`` and ``r``) and at the bf16 peak for the rest; the
     experts' ``2*3*d*d_ff_expert`` per capacity slot computed (``E *
-    cap`` a MoE layer a call), the causal attention's two products over
-    the positions each query sees (MLA's prefill ``nope + rope`` for
-    scores and ``v`` for values per head; its absorbed decode
-    ``H*(2*(kv_lora + rope) + 2*kv_lora)`` per cached position), the
-    recurrent blocks' products (``recurrent_ops``), the head only for the
-    last position (as ``prefill`` computes it); and the router's
-    ``2*d*E`` per token at the float32 peak.  Elementwise work (norms,
-    gates, decays) is not counted."""
+    cap`` a MoE layer a call); the attention's two products over the
+    positions each query sees: causal ``2*H*hd*S*(S+1)*B`` a layer, non-
+    causal (the encoder) ``4*H*hd*S*S*B``, a cross layer ``4*H*hd*Sq*T*B``
+    (MLA's prefill ``nope + rope`` for scores and ``v`` for values per
+    head; its absorbed decode ``H*(2*(kv_lora + rope) + 2*kv_lora)`` per
+    cached position); the recurrent blocks' products
+    (``recurrent_ops``); the head only for the last position (as
+    ``prefill`` computes it), for every position of an encode; and the
+    router's ``2*d*E`` per token at the float32 peak.  Elementwise work
+    (norms, gates, decays, softmax) is not counted."""
+    from repro_torch.models.attention import GQAttention
+    from repro_torch.models.model import FRAME_DIM, VLMUnit
     from repro_torch.models.moe import MoEBlock, capacity
     cfg = lm.cfg
     elt = 2 if cfg.param_dtype == "bfloat16" else 4
     d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.head_dim_)
     Vp = lm.vocab_padded
-    embed = lm.embed.numel()
+    named = dict(lm.named_parameters())
+    embed = named.get("embed")          # the audio family has none
     experts = [m for m in lm.modules() if isinstance(m, MoEBlock)]
-    n_gqa, n_mla, state_row = cache_inventory(lm)
+    cross = [u.x.attn for u in lm.modules() if isinstance(u, VLMUnit)]
+    T = cfg.vlm.num_image_tokens if cross else 0
+    cross_kv = {id(p) for a in cross for p in (a.wk, a.wv)}
+    xkv = sum(p.numel() for a in cross for p in (a.wk, a.wv))
+    image_bytes = B * T * (cfg.vlm.vision_dim if cross else 0) * 4
     expert_w = {id(getattr(m, w)) for m in experts
                 for w in ("router", "w_gate", "w_up", "w_down")}
-    weight_bytes = sum(p.numel() * p.element_size() for p in lm.parameters()
-                       if p is not lm.embed)
-    if cfg.tie_embeddings:
-        weight_bytes += embed * lm.embed.element_size()
-    applied = [(p, 1) for n, p in lm.named_parameters()
-               if n.startswith("segments.")]
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in named.values() if p is not embed)
+    if cfg.tie_embeddings and embed is not None:
+        weight_bytes += embed.numel() * embed.element_size()
+    applied = [(p, 1) for n, p in named.items()
+               if n.startswith("segments.") or n == "frontend_proj"]
     if lm.shared is not None:
         applied += [(p, len(lm.segments["units"]))
                     for p in lm.shared.parameters()]
     mats = {f32: sum(p.numel() * k for p, k in applied
                      if p.dim() >= 2 and id(p) not in expert_w
+                     and id(p) not in cross_kv
                      and (p.dtype == torch.float32) == f32)
             for f32 in (False, True)}
     head = d * Vp
+    all_bytes = sum(p.numel() * p.element_size() for p in named.values())
+    all_params = sum(p.numel() for p in named.values())
+
+    def cross_ops(sq: int) -> int:
+        """The cross layers' image K/V and their two products, for ``sq``
+        text positions a request."""
+        return (2 * xkv * T + 4 * H * hd * sq * T * len(cross)) * B
+
+    if lm.encoder_only:
+        layers = sum(isinstance(m, GQAttention) for m in lm.modules())
+        enc_bytes = weight_bytes + B * S * FRAME_DIM * 4 + B * S * Vp * 4
+        enc_ops = 2 * (mats[False] + head) * B * S \
+            + 4 * H * hd * S * S * B * layers
+        ops_s = enc_ops / BF16_FLOP_PER_S \
+            + 2 * mats[True] * B * S / FP32_FLOP_PER_S
+        return dict(encode_s=max(enc_bytes / HBM_BYTES_PER_S, ops_s),
+                    encode_bound_by="operations"
+                    if ops_s > enc_bytes / HBM_BYTES_PER_S else "bytes",
+                    encode_ops=enc_ops, encode_bytes=enc_bytes,
+                    coarse_encode_s=2 * all_params * B * S
+                    / BF16_FLOP_PER_S)
+    n_gqa, n_mla, state_row = cache_inventory(lm)
     if n_mla:
         m = cfg.mla
         lat, dqk, r = (m.kv_lora_rank + m.rope_head_dim,
@@ -2559,13 +2649,14 @@ def lm_bounds(lm, B: int, S: int, new: int) -> dict:
             f32 += 2 * d * me.num_experts * n_tok
         return bf, f32
 
+    pairs = S * (S + 1) // 2 if cfg.causal else S * S
     pre_bytes = weight_bytes + (B * S * d + cache_elems(S)) * elt \
-        + B * Vp * 4 + B * state_row
+        + B * Vp * 4 + B * state_row + image_bytes
     moe_bf, moe_f32 = expert_ops(B * S)
     rec_bf, rec_f32 = recurrent_ops(lm, B, S)
     pre_ops = 2 * mats[False] * B * S \
-        + 2 * H * hd * S * (S + 1) * B * n_gqa + 2 * head * B + moe_bf \
-        + rec_bf
+        + 4 * H * hd * pairs * B * n_gqa + 2 * head * B + moe_bf \
+        + rec_bf + cross_ops(S)
     pre_f32 = moe_f32 + 2 * mats[True] * B * S + rec_f32
     if n_mla:
         pre_ops += H * (dqk + m.v_head_dim) * S * (S + 1) * B * n_mla
@@ -2577,32 +2668,35 @@ def lm_bounds(lm, B: int, S: int, new: int) -> dict:
     steps, by_bytes = [], 0
     for pos in range(S, S + new - 1):        # the cache holds pos + 1
         b = weight_bytes + (B * d + cache_elems(pos + 1)) * elt \
-            + B * Vp * 4 + 2 * B * state_row
+            + B * Vp * 4 + 2 * B * state_row + image_bytes
         ops = 2 * (mats[False] + head) * B \
-            + 4 * H * hd * (pos + 1) * B * n_gqa + step_bf + rec_bf
+            + 4 * H * hd * (pos + 1) * B * n_gqa + step_bf + rec_bf \
+            + cross_ops(1)
         if n_mla:
             ops += H * (2 * lat + 2 * r) * (pos + 1) * B * n_mla
         ops_s = ops / BF16_FLOP_PER_S + step_f32 / FP32_FLOP_PER_S
         steps.append(max(b / HBM_BYTES_PER_S, ops_s))
         by_bytes += b / HBM_BYTES_PER_S > ops_s
-    all_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
-    all_params = sum(p.numel() for p in lm.parameters())
     return dict(prefill_s=pre, prefill_bound_by="operations"
                 if pre_ops_s > pre_bytes / HBM_BYTES_PER_S else "bytes",
                 prefill_ops=pre_ops, prefill_f32_ops=pre_f32,
                 decode_step_s=sum(steps) / len(steps), decode_bound_by=
                 "bytes" if 2 * by_bytes > len(steps) else "operations",
                 state_bytes=B * state_row, kv_caches=n_gqa + n_mla,
+                cross_layers=len(cross),
                 coarse_decode_step_s=all_bytes / HBM_BYTES_PER_S,
                 coarse_prefill_s=2 * all_params * B * S / BF16_FLOP_PER_S)
 
 
-def lm_serving(cat, query, cfg, dev) -> dict:
-    """(c) the full model serving join-fed prompts with join features.
+def lm_serving(cat, query, cfg, dev, prov=None) -> dict:
+    """(c) the full model serving join-fed prompts with join features
+    (from ``prov``, or a provider over a new card ``JoinService``).
     A model whose prefill loops over time (an sLSTM: xLSTM) runs lighter
     repeats, printed: one greedy run through the engine beside the timed
     one (not two), no sampled runs, and the busy share's decode steps go
-    on from the timed run's caches instead of a new prefill."""
+    on from the timed run's caches instead of a new prefill.  A vlm
+    request carries seeded image context (``media_kw``), to the prefill
+    and every decode step."""
     from repro_torch.core.gfjs import desummarize_range
     from repro_torch.data import JoinCorpus, TokenBatcher
     from repro_torch.models.model import LM
@@ -2615,9 +2709,11 @@ def lm_serving(cat, query, cfg, dev) -> dict:
     corpus, t_corpus = timed(lambda: JoinCorpus.build(
         cat, query, vocab=cfg.vocab, tokens_per_row=LM_TOKENS_PER_ROW,
         device=dev), dev)
-    svc = JoinService(cat, device=dev)
-    prov = RelationalFeatureProvider(svc, query, key_var="U1",
-                                     aggs={"n_paths": "count"})
+    if prov is None:
+        prov = RelationalFeatureProvider(JoinService(cat, device=dev), query,
+                                         key_var="U1",
+                                         aggs={"n_paths": "count"})
+    svc = prov.service
     print(f"  (c) JoinCorpus over {query.name} on the card: "
           f"{corpus.num_rows} rows in {t_corpus:.4f}s, "
           f"{LM_TOKENS_PER_ROW} tokens per row, vocab {cfg.vocab}")
@@ -2654,6 +2750,8 @@ def lm_serving(cat, query, cfg, dev) -> dict:
                              feature_provider=prov, device=dev)
         batch, t_feat = timed(lambda: engine.attach_features(batch, keys),
                               dev)
+        kw = media_kw(cfg, B, 200 + B, dev)
+        batch.update(kw)
         feats = batch["features"].cpu().numpy()
         if table is None:
             table = SummaryFrame.of(svc.frame(query).frame.gfjs,
@@ -2670,7 +2768,7 @@ def lm_serving(cat, query, cfg, dev) -> dict:
                   for s in ((1,) if light else (1, 2))]
         room = 2 * LM_PROFILED_STEPS + 1 if light else 0
         got, pre_s, step_s, run_caches, run_tok = timed_greedy(
-            lm, batch["tokens"], S + LM_NEW + room, LM_NEW, dev)
+            lm, batch["tokens"], S + LM_NEW + room, LM_NEW, dev, **kw)
         check(all(np.array_equal(got, g) for g in greedy),
               f"(c) {B} x {S}: greedy runs disagree")
         check(greedy[0].shape == (B, LM_NEW) and (greedy[0] >= 0).all()
@@ -2702,13 +2800,14 @@ def lm_serving(cat, query, cfg, dev) -> dict:
             else:
                 # room for two loops: timed, then profiled
                 logits, caches = lm.prefill(batch["tokens"],
-                                            S + 2 * LM_PROFILED_STEPS + 1)
+                                            S + 2 * LM_PROFILED_STEPS + 1,
+                                            **kw)
                 first = logits[:, -1].argmax(-1, keepdim=True)
 
             def loop():
                 tok = first
                 for _ in range(LM_PROFILED_STEPS):
-                    lg, _ = lm.decode_step(tok, caches)
+                    lg, _ = lm.decode_step(tok, caches, **kw)
                     tok = lg[:, -1].argmax(-1, keepdim=True)
             _, wall = timed(loop, dev)
             events = profiled_events(loop, dev)
@@ -2734,7 +2833,7 @@ def lm_serving(cat, query, cfg, dev) -> dict:
               + ", ".join(f"{k} {v[0]:.6f} x{v[1]}" for k, v in
                           row["decode_kernels"].items()))
         out[f"{B}x{S}"] = row
-        del batch, caches, run_caches
+        del batch, caches, run_caches, kw
     out["peak_device_bytes"] = peak_bytes(dev)
     print(f"  (c) peak device bytes {out['peak_device_bytes']} (parameters "
           f"{out['param_bytes']})")
@@ -2818,8 +2917,10 @@ def card_runs_equal(cfg, dev, seed: int):
     lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(
         seed))
     toks = seeded_tokens(cfg.vocab, (3, 16), seed, dev)
+    kw = media_kw(cfg, 3, 100 + seed, dev)
     with torch.inference_mode():
-        runs = [(lm(toks), stepwise_logits(lm, toks, 8)) for _ in range(2)]
+        runs = [(lm(toks, **kw), stepwise_logits(lm, toks, 8, **kw))
+                for _ in range(2)]
     same = all(torch.equal(a, b) for a, b in zip(*runs))
     check(same, f"(b) {cfg.name}: two card runs differ")
     return lm, toks, same
@@ -2912,6 +3013,17 @@ def seeded_batch(vocab: int, B: int, S: int, seed: int, dev) -> dict:
             for k in ("tokens", "labels")}
 
 
+def media_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """``seeded_batch``, the audio family's tokens replaced by seeded
+    frames, and the vlm's image context added (``media_kw``)."""
+    batch = seeded_batch(cfg.vocab, B, S, seed, dev)
+    if cfg.family == "audio":
+        batch["frames"] = seeded_frames(B, S, seed + 1, dev)
+        del batch["tokens"]
+    batch.update(media_kw(cfg, B, seed + 1, dev))
+    return batch
+
+
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     """|got - want| / |want| in the L2 norm, computed on the CPU in
     float64."""
@@ -2941,7 +3053,7 @@ def train_card_against_cpu(cfg, dev, seed: int, label: str = "(a)",
     cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
     card = LM(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
-    batch = seeded_batch(cfg.vocab, 4, 32, seed, "cpu")
+    batch = media_batch(cfg, 4, 32, seed, "cpu")
     card_batch = {k: v.to(dev) for k, v in batch.items()}
     (l_cpu, g_cpu), (l_card, g_card) = (loss_and_grads(cpu, batch),
                                         loss_and_grads(card, card_batch))
@@ -3377,6 +3489,218 @@ def run_recurrent(cat, queries, dev, power: str) -> dict:
     return out
 
 
+# -- phase 15: the vlm and audio families -----------------------------------
+
+MEDIA_ARCHS = ("llama32_vision_11b", "hubert_xlarge")
+# (a) at full width: Llama-3.2-Vision one unit (4 self-attention layers
+# and a cross layer) and one tail layer; HuBERT 2 of its 48 blocks
+MEDIA_WIDTH_LAYERS = {"llama32_vision_11b": 6, "hubert_xlarge": 2}
+# (a) HuBERT, card against CPU: the dense path, then the online one
+ENCODER_WIDTH_BATCHES = ((2, 256), (1, 3072))
+ENCODE_PROFILED = 1        # (c) encodes under the profiler
+
+
+def media_configs() -> dict:
+    """Phase 15's configurations per architecture: (a) full width,
+    float32, MEDIA_WIDTH_LAYERS layers; (b) and (d) the smoke variant in
+    float32; (c) the full configuration (bf16, every layer)."""
+    from repro_torch.configs import get_config, get_smoke
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    out = {}
+    for arch in MEDIA_ARCHS:
+        full = get_config(arch)
+        out[arch] = dict(
+            width=full.scaled(num_layers=MEDIA_WIDTH_LAYERS[arch], **f32),
+            smoke=get_smoke(arch).scaled(**f32), full=full,
+            depth=full.num_layers)
+    return out
+
+
+def encoder_width(cfg, dev) -> dict:
+    """(a) HuBERT at full width in float32: the card's forward against
+    the CPU's on the same weights and frames (ENCODER_WIDTH_BATCHES: the
+    dense path, then the online one) to LM_CARD_TOL, and non-causality on
+    the card: another last frame moves position 0's logits."""
+    from repro_torch.models.model import LM
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(40))
+    card = LM(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    out: dict = dict(param_bytes=card.param_bytes())
+    for i, (B, S) in enumerate(ENCODER_WIDTH_BATCHES):
+        fr = seeded_frames(B, S, 41 + i, "cpu")
+        moved = fr.clone()
+        moved[:, -1] = seeded_frames(B, 1, 51 + i, "cpu")[:, 0]
+        with torch.inference_mode():
+            want = cpu(fr)
+            got = card(fr.to(dev))
+            shift = card(moved.to(dev))
+        err = float((got.cpu() - want).abs().max())
+        check(torch.allclose(got.cpu(), want, atol=LM_CARD_TOL,
+                             rtol=LM_CARD_TOL),
+              f"(a) {cfg.name} {B} x {S}: the card's logits differ from "
+              f"the CPU's by {err}")
+        first = float((shift[:, 0] - got[:, 0]).abs().max())
+        check(first > 1e-4, f"(a) {cfg.name} {B} x {S}: position 0 does "
+              f"not see the last frame (moved by {first}): causal?")
+        out[f"{B}x{S}"] = dict(max_err=err, first_moved=first)
+        print(f"  (a) {cfg.name} at full width, {cfg.num_layers} layers, "
+              f"float32 ({out['param_bytes']} B), {B} x {S} frames ("
+              + ("online" if S * S > (1 << 22) else "dense") + " path): "
+              f"logits on the card against the CPU, max |diff| {err:.3g} "
+              f"(tol {LM_CARD_TOL}); another last frame moves position 0's "
+              f"logits by {first:.3g} (non-causal)")
+    return out
+
+
+def encoder_card_runs(cfg, dev, seed: int) -> dict:
+    """(b) the smoke encoder on the card against the CPU (forward logits
+    to LM_CARD_TOL) and two card runs bit-equal."""
+    from repro_torch.models.model import LM
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(
+        seed))
+    card = LM(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    fr = seeded_frames(3, 16, seed, "cpu")
+    with torch.inference_mode():
+        want = cpu(fr)
+        runs = [card(fr.to(dev)) for _ in range(2)]
+    err = float((runs[0].cpu() - want).abs().max())
+    check(torch.allclose(runs[0].cpu(), want, atol=LM_CARD_TOL,
+                         rtol=LM_CARD_TOL),
+          f"(b) {cfg.name}: the card's logits differ from the CPU's by {err}")
+    same = torch.equal(runs[0], runs[1])
+    check(same, f"(b) {cfg.name}: two card runs differ")
+    print(f"  (b) {cfg.name} float32: forward logits on the card against "
+          f"the CPU, max |diff| {err:.3g} (tol {LM_CARD_TOL}); two card "
+          f"runs bit-equal")
+    return {cfg.name: dict(max_err=err), "bit_equal": same}
+
+
+def encoder_serving(cfg, dev, prov, table) -> dict:
+    """(c) the full encoder in bf16 encoding seeded frames through
+    ``make_serve_step(lm, mode="prefill")`` at LM_BATCHES, each request's
+    features from ``prov`` (held against ``table``, the GROUP BY on
+    ``device="cpu"``): two encodes bit-equal, finite logits of the
+    expected shape; encode seconds and frames/s beside ``lm_bounds``; the
+    busy share of ENCODE_PROFILED encodes with kernel seconds by name;
+    peak device bytes."""
+    from repro_torch.models.model import LM
+    from repro_torch.serve import ServeConfig, ServeEngine, lookup_rows, \
+        make_serve_step
+    out: dict = {}
+    reset_peak(dev)
+    lm, t_build = timed(lambda: LM(
+        cfg, device=dev, generator=torch.Generator(dev).manual_seed(0)), dev)
+    out["param_bytes"] = lm.param_bytes()
+    out["params"] = sum(p.numel() for p in lm.parameters())
+    print(f"  (c) {cfg.name}: {cfg.num_layers} layers, {out['params']} "
+          f"parameters, {out['param_bytes']} B in {cfg.param_dtype}, built "
+          f"and drawn on the card in {t_build:.3f}s")
+    encode = make_serve_step(lm, mode="prefill")
+    users = np.asarray(table["U1"])
+    for i, (B, S) in enumerate(LM_BATCHES):
+        row = {"requests": B, "frames": S}
+        keys = np.random.default_rng(300 + i).choice(users, B)
+        engine = ServeEngine(lm, ServeConfig(max_seq=S),
+                             feature_provider=prov, device=dev)
+        batch, t_feat = timed(lambda: engine.attach_features(
+            {"frames": seeded_frames(B, S, 310 + i, dev)}, keys), dev)
+        feats = batch["features"].cpu().numpy()
+        check(np.array_equal(feats, lookup_rows(table, "U1", ["n_paths"],
+                                                keys)),
+              "(c) the provider's features differ from group_by on "
+              "device='cpu'")
+        with torch.inference_mode():
+            first = encode(batch["frames"])            # warms the card
+            second, t_enc = timed(lambda: encode(batch["frames"]), dev)
+            same = torch.equal(first, second)
+            check(same, f"(c) {B} x {S}: two encodes differ")
+            check(tuple(second.shape) == (B, S, lm.vocab_padded)
+                  and bool(torch.isfinite(second[..., :cfg.vocab]).all()),
+                  f"(c) {B} x {S}: logits not finite or of another shape")
+            del first, second
+
+            def loop():
+                for _ in range(ENCODE_PROFILED):
+                    encode(batch["frames"])
+            _, wall = timed(loop, dev)
+            events = profiled_events(loop, dev)
+        bound = lm_bounds(lm, B, S, 1)
+        row.update(features=feats[:, 0].tolist(), users=keys.tolist(),
+                   feature_s=t_feat, encode_s=t_enc,
+                   frames_per_s=B * S / t_enc, bound=bound, bit_equal=same,
+                   busy=busy_of(event_seconds(events), wall),
+                   kernels=kernel_seconds_by_name(events))
+        print(f"  (c) {B} x {S} frames: features {row['features']} for "
+              f"users {row['users']} in {t_feat:.4f}s, equal to group_by on "
+              f"the CPU; encode {t_enc:.4f}s, {B * S / t_enc:.1f} frames/s, "
+              f"bound {bound['encode_s']:.4f}s by "
+              f"{bound['encode_bound_by']} (2 x all parameters x frames / "
+              f"bf16 peak: {bound['coarse_encode_s']:.4f}s); two encodes "
+              f"bit-equal; {ENCODE_PROFILED} encode(s) "
+              f"{fmt_busy(row['busy'])}")
+        print(f"      the encode's card time by kernel (s): "
+              + ", ".join(f"{k} {v[0]:.6f} x{v[1]}" for k, v in
+                          row["kernels"].items()))
+        out[f"{B}x{S}"] = row
+        del batch
+    out["peak_device_bytes"] = peak_bytes(dev)
+    print(f"  (c) peak device bytes {out['peak_device_bytes']} (parameters "
+          f"{out['param_bytes']})")
+    del lm
+    return out
+
+
+def run_media(cat, queries, dev, power: str) -> dict:
+    """Phase 15: the vlm (Llama-3.2-Vision) and audio (HuBERT) families
+    on the card."""
+    from repro_torch.serve import RelationalFeatureProvider
+    from repro_torch.summary import JoinService
+    from repro_torch.summary.algebra import SummaryFrame
+    cfgs = media_configs()
+    query = queries["lastfm_A1"]
+    t0 = time.perf_counter()
+    out: dict = dict(power=power)
+    prov = RelationalFeatureProvider(JoinService(cat, device=dev), query,
+                                     key_var="U1", aggs={"n_paths": "count"})
+    for i, arch in enumerate(MEDIA_ARCHS):
+        c = cfgs[arch]
+        t1 = time.perf_counter()
+        if c["full"].family == "vlm":
+            row = dict(width=lm_width_consistency(c["width"], dev))
+        else:
+            row = dict(width=encoder_width(c["width"], dev))
+        print(f"  (a) {arch}: {c['width'].num_layers} of {c['depth']} "
+              f"layers (reduced: depth)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        if c["full"].family == "vlm":
+            row["smoke"] = lm_card_against_cpu([c["smoke"]], dev)
+            _, _, row["smoke"]["bit_equal"] = card_runs_equal(
+                c["smoke"], dev, 80 + i)
+            print(f"  (b) {c['smoke'].name}: two card runs (forward, "
+                  f"prefill, 7 decode steps) bit-equal")
+            row["full"] = lm_serving(cat, query, c["full"], dev, prov=prov)
+        else:
+            row["smoke"] = encoder_card_runs(c["smoke"], dev, 80 + i)
+            table = SummaryFrame.of(prov.service.frame(query).frame.gfjs,
+                                    device="cpu").group_by(
+                ["U1"], n_paths="count")
+            row["full"] = encoder_serving(c["full"], dev, prov, table)
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["train"] = train_card_against_cpu(c["smoke"], dev, 90 + i,
+                                              label="(d)")
+        row["seconds"] = time.perf_counter() - t1
+        print(f"  {arch}: {row['seconds']:.1f}s [{power}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = row
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase {out['seconds']:.1f}s [{power}]")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the per-shape measurements "
@@ -3409,7 +3733,7 @@ def main() -> int:
 
 
 def smoke(dev, lastfm_kw, out_path, header) -> list:
-    """Phases 3-14 on ``dev``; returns the kernels line's entries.  (The
+    """Phases 3-15 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
     from repro_torch.kernels.dense_message import dense_message
@@ -3637,6 +3961,24 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     print(f"recurrent serving path: launches {recurrent['launches']}, numpy "
           f"fallbacks=0")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    expand_many.launches = mul_segsum.launches = 0
+    run_boundaries.launches = 0
+    fb9 = fallbacks.value
+    print("the vlm and audio families on the card:")
+    media = run_media(cat, queries, dev, header["power"])
+    media["launches"] = {"expand_many": expand_many.launches,
+                         "mul_segsum": mul_segsum.launches,
+                         "run_boundaries": run_boundaries.launches}
+    for name, n in media["launches"].items():
+        check(n > 0, f"the vlm and audio serving path launched no {name} "
+              f"kernel")
+    check(fallbacks.value == fb9,
+          "numpy fallbacks on the vlm and audio serving path")
+    print(f"vlm and audio serving path: launches {media['launches']}, "
+          f"numpy fallbacks=0")
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -3649,6 +3991,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             thin_launches=thin_launches, k_sweep=k_sweep, rates=rates,
             service=service, partitioned=partitioned, lm_serving=lm,
             moe_serving=moe, training=training, recurrent=recurrent,
+            media=media,
             previous_ms={"/".join(map(str, k)): v
                          for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(

@@ -17,8 +17,8 @@ layers of a stack (``segments.<s>.<i>.<rest>``, the port's LM
 parameters) is stored as the reference stores it: one leaf per stacked
 parameter, the layers on its leading axis, under the reference's name
 (``interop.lm_reference_name`` under ``prefixes``, the model's
-``reference_prefixes``; without them, the dense, moe and gemma3
-families' names).  Its bytes are the layers' bytes in
+``reference_prefixes``; without them, the dense, moe, gemma3, vlm
+and audio families' names).  Its bytes are the layers' bytes in
 index order, so the layers are written one after another and read back
 as views of one buffer, never stacked in memory.
 

@@ -73,7 +73,8 @@ def gfjs_from_arrays(
 # for Mamba2, ``xm`` for an mLSTM layer, empty for a unit, which names
 # its parts itself):
 #
-#   embed | head | final_norm              -> the same name, ()
+#   embed | head | final_norm | vision_norm | frontend_proj
+#                                           -> the same name, ()
 #   shared.<rest>                           -> shared.shared.<rest>, ()
 #                                              (zamba2's shared block)
 #   segments.<s>.<i>.<c>.<j>.<rest>         -> <s>.<c>.<P of s.c>.<rest>,
@@ -85,10 +86,12 @@ def gfjs_from_arrays(
 # e.g. ``blocks.b.attn.wq`` [L, d, H, hd] holds layer i's
 # ``segments.blocks.<i>.attn.wq`` [d, H, hd], ``units.mam.m.ssm.D``
 # [U, k, H] unit i's layer j's ``segments.units.<i>.mam.<j>.ssm.D`` and
-# ``units.xs.cell.r`` [U, ...] unit i's ``segments.units.<i>.xs.cell.r``.
+# ``units.xs.cell.r`` [U, ...] unit i's ``segments.units.<i>.xs.cell.r``;
+# a vlm unit's ``units.sa.b.attn.wq`` [U, k, d, H, hd] and
+# ``units.x.attn.wk`` [U, vision_dim, KV, hd] (its cross layer).
 # Without the model's prefixes, every stack's is ``b`` and ``units``'s
-# empty: the dense, moe and gemma3 families'.  bf16 travels as float32
-# numpy, which holds every bf16 value exactly.
+# empty: the dense, moe, gemma3, vlm and audio families'.  bf16 travels
+# as float32 numpy, which holds every bf16 value exactly.
 
 _SEG = re.compile(r"segments\.(\w+)\.(\d+)\.(.*)")
 _INNER = re.compile(r"(\w+)\.(\d+)\.(.*)")

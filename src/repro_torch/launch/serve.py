@@ -9,8 +9,10 @@ built on ``--device`` with random weights from a generator seeded 0.
 ``--features`` attaches per-user relational features pulled through a
 ``JoinServer`` in front of a ``JoinService`` on the same device
 (lastfm_A1's path counts per user, over a small ``lastfm_like``
-catalog).  The dense, moe, hybrid and ssm families are ported; the
-others (vlm, audio) exit with the ROADMAP item they wait for.
+catalog).  A vlm model gets seeded image context with each request
+(the reference's stub patch embeddings); an encoder-only model (audio)
+exits, as in the reference: it encodes through
+``make_serve_step(lm, mode="prefill")`` and does not generate.
 """
 
 from __future__ import annotations
@@ -60,15 +62,16 @@ def main(argv=None) -> None:
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if cfg.is_encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only; no decode path")
-    try:
-        lm = LM(cfg, device=args.device,
-                generator=torch.Generator(args.device).manual_seed(0))
-    except NotImplementedError as exc:
-        raise SystemExit(str(exc))
+    lm = LM(cfg, device=args.device,
+            generator=torch.Generator(args.device).manual_seed(0))
 
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab,
                                     (args.batch, args.prompt_len))}
+    if cfg.family == "vlm":
+        batch["vision"] = rng.normal(size=(
+            args.batch, cfg.vlm.num_image_tokens,
+            cfg.vlm.vision_dim)).astype(np.float32)
     provider = make_feature_provider(args.device) if args.features else None
     engine = ServeEngine(
         lm, ServeConfig(max_seq=args.prompt_len + args.max_new,

@@ -1,5 +1,6 @@
-"""Grouped-query attention (covers MHA), sliding window, qk-norm and logit
-softcap, with the three entry modes of the reference
+"""Grouped-query attention (covers MHA), sliding window, qk-norm, logit
+softcap and image cross-attention (vlm), with the three entry modes of
+the reference
 (``repro/models/attention.py``) on one code path:
 
 * ``forward``  -- full-sequence forward;
@@ -18,6 +19,12 @@ one product and is numerically the same (the tests hold the two equal).
 ``[B, S_max, kv_lora + rope_dim]``; its prefill expands the latent to
 per-head K/V, and its decode is the reference's absorbed form, which
 scores against the latent itself.
+
+Cross-attention (``forward(..., kv_src=vision)``) projects K and V from
+the image context (``kv_dim`` wide), applies no rope to either side and
+attends without a mask, densely, as the reference does; it has no cache.
+``cfg.causal = False`` (the audio encoder) drops the causal mask on the
+dense and the online path alike.
 """
 
 from __future__ import annotations
@@ -31,11 +38,6 @@ from torch import nn
 from repro_torch.models import flash
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, declare, dtype_of, rms_norm
-
-WAITS = ("is not ported yet (ROADMAP.md queue 1 items 4-5: the vlm and "
-         "audio families; the port has the dense, moe, hybrid and ssm "
-         "families, their serving and their training)")
-
 
 @dataclass
 class KVCache:
@@ -71,15 +73,18 @@ class GQAttention(nn.Module):
     # every query head); numerically the same
     kv_layout = "grouped"
 
-    def __init__(self, cfg: ModelConfig, *, device: torch.device) -> None:
+    def __init__(self, cfg: ModelConfig, *, device: torch.device,
+                 kv_dim: Optional[int] = None) -> None:
         super().__init__()
         self.cfg = cfg
         d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim_)
+        kvd = kv_dim or d
         dt = dtype_of(cfg.param_dtype)
+        # wk / wv at the reference's stddev d ** -0.5, whatever kv_dim is
         declare(self, "wq", (d, H, hd), dt, device, d ** -0.5)
-        declare(self, "wk", (d, KV, hd), dt, device, d ** -0.5)
-        declare(self, "wv", (d, KV, hd), dt, device, d ** -0.5)
+        declare(self, "wk", (kvd, KV, hd), dt, device, d ** -0.5)
+        declare(self, "wv", (kvd, KV, hd), dt, device, d ** -0.5)
         declare(self, "wo", (H, hd, d), dt, device, (H * hd) ** -0.5)
         if cfg.qk_norm:
             declare(self, "q_norm", (hd,), dt, device, None)
@@ -92,16 +97,20 @@ class GQAttention(nn.Module):
         return (x @ w.reshape(w.shape[0], -1).to(x.dtype)).unflatten(
             -1, w.shape[1:])
 
-    def _qkv(self, x, positions):
+    def _qkv(self, x, positions, kv_src=None):
+        """q from ``x``; k, v from ``kv_src`` (cross-attention: no rope)
+        or from ``x`` (roped at ``positions``)."""
         cfg = self.cfg
+        src = x if kv_src is None else kv_src
         q = self._proj(x, self.wq)
-        k = self._proj(x, self.wk)
-        v = self._proj(x, self.wv)
+        k = self._proj(src, self.wk)
+        v = self._proj(src, self.wv)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.norm_eps)
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_src is None:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
     def _out(self, out: torch.Tensor) -> torch.Tensor:
@@ -156,8 +165,14 @@ class GQAttention(nn.Module):
         return self._attend(q, k.transpose(1, 2), v.transpose(1, 2), mask)
 
     # -- entry points --------------------------------------------------------
-    def forward(self, x, positions, *, window: int = 0) -> torch.Tensor:
-        q, k, v = self._qkv(x, positions)
+    def forward(self, x, positions, *, window: int = 0,
+                kv_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Self-attention, or with ``kv_src`` ([B, T, kv_dim]) cross-
+        attention to it: no rope, no mask, no chunking."""
+        q, k, v = self._qkv(x, positions, kv_src)
+        if kv_src is not None:
+            return self._attend(q, k.transpose(1, 2), v.transpose(1, 2),
+                                None)
         return self._attend_seq(q, k, v, causal=self.cfg.causal,
                                 window=window)
 

@@ -65,23 +65,28 @@ class MLP(nn.Module):
 
 class TransformerBlock(nn.Module):
     """Pre-norm block.  Variants: GQA/MLA attention, qk-norm, sliding
-    window, softcap, MoE FFN.  The FFN is the attribute ``moe`` or
-    ``mlp``, the reference's parameter prefixes."""
+    window, softcap, MoE FFN, and (``cross=True``, vlm) GQA cross-
+    attention to a ``kv_src`` of ``cfg.vlm.vision_dim``, MLA or not, as
+    in the reference.  The FFN is the attribute ``moe`` or ``mlp``, the
+    reference's parameter prefixes."""
 
     prefix = "b"
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
-                 window: int = 0, use_moe: bool = False) -> None:
+                 window: int = 0, use_moe: bool = False,
+                 cross: bool = False) -> None:
         super().__init__()
         self.cfg = cfg
         self.window = window
         dt = dtype_of(cfg.param_dtype)
         declare(self, "ln1", (cfg.d_model,), dt, device, None)
         declare(self, "ln2", (cfg.d_model,), dt, device, None)
-        if cfg.mla is not None:
+        if cfg.mla is not None and not cross:
             self.attn = MLAttention(cfg, device=device)
         else:
-            self.attn = GQAttention(cfg, device=device)
+            self.attn = GQAttention(
+                cfg, device=device,
+                kv_dim=cfg.vlm.vision_dim if cross and cfg.vlm else None)
         if use_moe:
             self.moe = MoEBlock(cfg, device=device)
         else:
@@ -91,10 +96,11 @@ class TransformerBlock(nn.Module):
     def _ffn(self, h):
         return self.moe(h) if self.use_moe else self.mlp(h)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, *, kv_src=None):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        x = x + self.attn(h, positions, window=self.window)
+        kw = {} if kv_src is None else {"kv_src": kv_src}
+        x = x + self.attn(h, positions, window=self.window, **kw)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
         return x + self._ffn(h)
 
@@ -188,11 +194,13 @@ class ScanStack(nn.ModuleList):
 
     Keyword arguments of ``forward``, ``init_cache``, ``prefill`` and
     ``decode`` go to every block (a zamba2 unit's shared attention
-    block).  With ``remat`` (the reference's ``jax.checkpoint`` per
-    stacked block, ``cfg.remat != "none"``), a forward that autograd
-    records keeps only each block's input and recomputes the block in the
-    backward pass; prefill, decode and forwards without gradients run the
-    blocks plainly."""
+    block, a vlm unit's image context).  With ``remat`` (the reference's
+    ``jax.checkpoint`` per stacked block, ``cfg.remat != "none"``), a
+    forward that autograd records keeps only each block's input and
+    recomputes the block in the backward pass (its keyword tensors are
+    saved as inputs, so the image context's gradient flows back to
+    ``vision_norm``); prefill, decode and forwards without gradients run
+    the blocks plainly."""
 
     def __init__(self, n: int, make_block: Callable[[], nn.Module], *,
                  remat: bool = False) -> None:

@@ -1,26 +1,34 @@
-"""The LM of the dense, moe, hybrid and ssm families: blocks per
-architecture and the entry points the serving engine consumes
-(``repro/models/model.py``):
+"""The LM of every family: blocks per architecture and the entry points
+the serving engine consumes (``repro/models/model.py``):
 
 * ``LM(cfg, device=, generator=)`` builds and initialises on ``device``;
-* ``forward(tokens)``                 -> logits [B, S, V]
-* ``loss(batch)``                     -> scalar
-* ``prefill(tokens, s_max)``          -> (logits [B, 1, V], caches)
-* ``decode_step(tokens, caches)``     -> (logits [B, 1, V], caches)
+* ``forward(inputs, *, vision=None)``          -> logits [B, S, V]
+* ``loss(batch)``                               -> scalar
+* ``prefill(inputs, s_max, *, vision=None)``   -> (logits [B, 1, V], caches)
+* ``decode_step(tokens, caches, *, vision=None)``
+                                                -> (logits [B, 1, V], caches)
+
+``inputs`` are token ids [B, S], or for the audio family the frame
+embeddings [B, S, 512] (the reference's stub frontend); ``loss`` reads
+``batch["tokens"]`` or ``batch["frames"]``, and ``batch["vision"]``.
+``vision`` is the vlm family's image context [B, T, vision_dim] (stub
+patch embeddings), normed by ``vision_norm`` once per call and attended
+by every unit's cross-attention layer, in decode too (its K/V recomputed
+at every step, as in the reference).  The audio family is an encoder:
+``decode_step`` raises ``ValueError``.
 
 Segments, as in the reference:
 
-  dense  : [stack(block) x L]
+  dense  : [stack(block) x L]                 (audio too: hubert)
   gemma3 : [unit(k local + 1 global) x U, local x tail]
   moe    : [dense0: block x first_dense_layers, moe: MoE block x rest]
            (MLA attention where the config has it: deepseek-v2)
+  vlm    : [unit(k self + 1 cross) x U, self x tail]
+           (k = cross_attn_every - 1: Llama-3.2-Vision's 4 + 1)
   hybrid : [unit(shared attention + k Mamba2) x U, Mamba2 x tail]
            (zamba2: one attention block, ``LM.shared``, applied at the
            head of every unit, each unit with its own KV cache for it)
   ssm    : [unit(mLSTM + sLSTM) x U, mLSTM x tail]   (xlstm)
-
-The ``vlm`` and ``audio`` families raise ``NotImplementedError``
-(ROADMAP.md queue 1 items 4-5).
 
 Training (``repro_torch.train``) turns the parameters' gradients on;
 with ``cfg.remat != "none"`` each stack recomputes its blocks in the
@@ -43,14 +51,14 @@ from torch import nn
 import torch.nn.functional as F
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.models.attention import WAITS
 from repro_torch.models.blocks import (Mamba2Layer, ScanStack,
                                       TransformerBlock, XLSTMLayer)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, declare, dtype_of,
                                        init_normal, rms_norm)
 
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
+FRAME_DIM = 512          # the audio family's stub frame embeddings
 
 
 def model_device(device: Union[str, torch.device]) -> torch.device:
@@ -155,14 +163,45 @@ class XLSTMUnit(nn.Module):
         return x, cache
 
 
+class VLMUnit(nn.Module):
+    """k self-attention layers, then one image cross-attention layer
+    against the ``vision`` keyword.  The unit's cache is the self-
+    attention stack's: the cross layer has none, and recomputes its K/V
+    from ``vision`` at every call."""
+
+    prefix = ""
+
+    def __init__(self, cfg: ModelConfig, k: int, *,
+                 device: torch.device) -> None:
+        super().__init__()
+        self.sa = ScanStack(k, lambda: TransformerBlock(cfg, device=device),
+                            remat=cfg.remat != "none")
+        self.x = TransformerBlock(cfg, device=device, cross=True)
+
+    def forward(self, x, positions, *, vision: torch.Tensor):
+        return self.x(self.sa(x, positions), positions, kv_src=vision)
+
+    def init_cache(self, batch: int, s_max: int, *, vision=None):
+        return self.sa.init_cache(batch, s_max)
+
+    def prefill(self, x, positions, cache, *, vision: torch.Tensor):
+        x, _ = self.sa.prefill(x, positions, cache)
+        return self.x(x, positions, kv_src=vision), cache
+
+    def decode(self, x, cache, *, vision: torch.Tensor):
+        x, _ = self.sa.decode(x, cache)
+        # the cross path applies no rope, so the positions (the
+        # reference's zeros) are never read
+        return self.x(x, None, kv_src=vision), cache
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *,
                  device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family!r} family ({cfg.name}) {WAITS}")
+            raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
         dev = model_device(device)
         self.cfg = cfg
         d = cfg.d_model
@@ -174,10 +213,20 @@ class LM(nn.Module):
                                               dtype=self.compute_dtype))
         # vocab padded to a multiple of 256; padded logits are -1e30
         self.vocab_padded = -(-cfg.vocab // 256) * 256
-        declare(self, "embed", (self.vocab_padded, d), dt, dev, 1.0)
-        if not cfg.tie_embeddings:
+        if cfg.family == "audio":
+            # frames in, an untied head out, whatever tie_embeddings says
+            declare(self, "frontend_proj", (FRAME_DIM, d), dt, dev,
+                    FRAME_DIM ** -0.5)
             declare(self, "head", (d, self.vocab_padded), dt, dev, d ** -0.5)
+        else:
+            declare(self, "embed", (self.vocab_padded, d), dt, dev, 1.0)
+            if not cfg.tie_embeddings:
+                declare(self, "head", (d, self.vocab_padded), dt, dev,
+                        d ** -0.5)
         declare(self, "final_norm", (d,), dt, dev, None)
+        if cfg.family == "vlm":
+            declare(self, "vision_norm", (cfg.vlm.vision_dim,), dt, dev,
+                    None)
 
         L = cfg.num_layers
         # zamba2's shared attention block: one set of parameters
@@ -202,6 +251,11 @@ class LM(nn.Module):
             stack("dense0", nd, lambda: TransformerBlock(cfg, device=dev))
             stack("moe", L - nd, lambda: TransformerBlock(
                 cfg, device=dev, use_moe=True))
+        elif cfg.family == "vlm":
+            k = cfg.vlm.cross_attn_every - 1
+            stack("units", L // (k + 1), lambda: VLMUnit(cfg, k, device=dev))
+            stack("tail", L % (k + 1), lambda: TransformerBlock(
+                cfg, device=dev))
         elif cfg.local_global_pattern:
             k = cfg.local_global_pattern
             stack("units", L // (k + 1), lambda: GemmaUnit(cfg, k,
@@ -220,7 +274,12 @@ class LM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm.device
+
+    @property
+    def encoder_only(self) -> bool:
+        """No decode step: the audio family, or a non-causal config."""
+        return self.cfg.family == "audio" or self.cfg.is_encoder_only
 
     @property
     def reference_prefixes(self) -> Dict[str, str]:
@@ -242,9 +301,28 @@ class LM(nn.Module):
         return sum(p.numel() * p.element_size() for p in self.parameters())
 
     # -- shared plumbing ------------------------------------------------------
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = F.embedding(tokens.long(), self.embed).to(self.compute_dtype)
+    def _embed(self, inputs: torch.Tensor) -> torch.Tensor:
+        """Token ids [B, S], or audio frames [B, S, 512] projected to
+        d_model (no sqrt(d) scale, as in the reference)."""
+        cdt = self.compute_dtype
+        if self.cfg.family == "audio":
+            return inputs.to(cdt) @ self.frontend_proj.to(cdt)
+        x = F.embedding(inputs.long(), self.embed).to(cdt)
         return x * self.embed_scale
+
+    def _vision(self, vision: Optional[torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+        """The vlm family's image context, in the compute dtype and
+        normed by ``vision_norm``; None for the other families."""
+        cfg = self.cfg
+        if cfg.family != "vlm":
+            return None
+        if vision is None:
+            raise ValueError(f"{cfg.name} needs the image context: "
+                             f"vision=[B, {cfg.vlm.num_image_tokens}, "
+                             f"{cfg.vlm.vision_dim}]")
+        return rms_norm(vision.to(self.compute_dtype), self.vision_norm,
+                        cfg.norm_eps)
 
     @staticmethod
     def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -254,29 +332,38 @@ class LM(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        w = self.embed.T if cfg.tie_embeddings else self.head
+        w = self.embed.T if cfg.tie_embeddings and cfg.family != "audio" \
+            else self.head
         logits = (x @ w.to(x.dtype)).to(dtype_of(cfg.logits_dtype))
         if self.vocab_padded != cfg.vocab:
             real = torch.arange(self.vocab_padded, device=x.device) < cfg.vocab
             logits = torch.where(real, logits, -1e30)
         return logits
 
-    def _kw(self, name: str) -> Dict[str, nn.Module]:
+    def _kw(self, name: str, vision: Optional[torch.Tensor] = None
+            ) -> Dict[str, object]:
         """The keyword arguments of segment ``name``'s blocks: zamba2's
-        units get the shared attention block."""
-        return {"shared": self.shared} \
-            if self.shared is not None and name == "units" else {}
+        units get the shared attention block, the vlm units the normed
+        image context."""
+        if name != "units":
+            return {}
+        if self.shared is not None:
+            return {"shared": self.shared}
+        return {"vision": vision} if self.cfg.family == "vlm" else {}
 
     # -- entry points ---------------------------------------------------------
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self._embed(tokens)
+    def forward(self, inputs: torch.Tensor, *,
+                vision: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self._embed(inputs)
         positions = self._positions(x)
+        v = self._vision(vision)
         for name, seg in self.segments.items():
-            x = seg(x, positions, **self._kw(name))
+            x = seg(x, positions, **self._kw(name, v))
         return self._head(x)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        logits = self.forward(batch["tokens"])
+        inputs = batch["frames" if self.cfg.family == "audio" else "tokens"]
+        logits = self.forward(inputs, vision=batch.get("vision"))
         return cross_entropy(logits, batch["labels"], batch.get("mask"))
 
     # -- serving --------------------------------------------------------------
@@ -284,19 +371,28 @@ class LM(nn.Module):
         return [seg.init_cache(batch, s_max, **self._kw(name))
                 for name, seg in self.segments.items()]
 
-    def prefill(self, tokens: torch.Tensor,
-                s_max: int) -> Tuple[torch.Tensor, List]:
-        x = self._embed(tokens)
+    def prefill(self, inputs: torch.Tensor, s_max: int, *,
+                vision: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List]:
+        x = self._embed(inputs)
         positions = self._positions(x)
+        v = self._vision(vision)
         caches = self.init_caches(x.shape[0], s_max)
         for (name, seg), cache in zip(self.segments.items(), caches):
-            x, _ = seg.prefill(x, positions, cache, **self._kw(name))
+            x, _ = seg.prefill(x, positions, cache, **self._kw(name, v))
         return self._head(x[:, -1:]), caches
 
-    def decode_step(self, tokens: torch.Tensor,
-                    caches: List) -> Tuple[torch.Tensor, List]:
-        """tokens: [B, 1] -> (logits [B, 1, V], the caches, updated)."""
+    def decode_step(self, tokens: torch.Tensor, caches: List, *,
+                    vision: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, List]:
+        """tokens: [B, 1] -> (logits [B, 1, V], the caches, updated).
+        The vlm family needs ``vision`` at every step; an encoder (the
+        audio family) has no decode step."""
+        if self.encoder_only:
+            raise ValueError(f"{self.cfg.name} is an encoder: it has no "
+                             f"decode step")
         x = self._embed(tokens)
+        v = self._vision(vision)
         for (name, seg), cache in zip(self.segments.items(), caches):
-            x, _ = seg.decode(x, cache, **self._kw(name))
+            x, _ = seg.decode(x, cache, **self._kw(name, v))
         return self._head(x), caches

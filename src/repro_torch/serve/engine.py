@@ -185,17 +185,27 @@ class ServeEngine:
         ``max_new - 1`` decode steps, one fewer than the reference, which
         decodes once more and discards that step's token: the tokens are
         equal.  ``max_new < 1`` raises ``ValueError`` (the reference's
-        empty concatenation raises too)."""
+        empty concatenation raises too), and so does an encoder-only
+        model, before any work.  A vlm batch's ``"vision"`` goes to the
+        prefill and to every decode step."""
+        if self.lm.encoder_only:
+            raise ValueError(f"{self.lm.cfg.name} is encoder-only: it "
+                             f"does not generate (use make_serve_step("
+                             f"lm, mode='prefill') to encode)")
         if max_new < 1:
             raise ValueError(f"max_new must be at least 1, not {max_new}")
         tokens = torch.as_tensor(batch["tokens"]).to(self.device,
                                                      torch.int64)
+        vision = batch.get("vision")
+        if vision is not None:
+            vision = torch.as_tensor(vision).to(self.device)
         gen = torch.Generator(self.device).manual_seed(seed)
-        logits, caches = self.lm.prefill(tokens, s_max=self.cfg.max_seq)
+        logits, caches = self.lm.prefill(tokens, s_max=self.cfg.max_seq,
+                                         vision=vision)
         tok = self._sample(logits, gen)
         out = [tok]
         for _ in range(max_new - 1):
-            logits, caches = self.lm.decode_step(tok, caches)
+            logits, caches = self.lm.decode_step(tok, caches, vision=vision)
             tok = self._sample(logits, gen)
             out.append(tok)
         return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
@@ -204,17 +214,24 @@ class ServeEngine:
 def make_serve_step(lm: LM, *, mode: str):
     """The serving entry points as functions of tensors.
 
-    mode == "prefill": (tokens, *, s_max) -> (logits, caches)
-    mode == "decode":  (tokens, caches) -> (logits, caches)
+    mode == "prefill": (tokens, *, s_max, vision=None) -> (logits, caches);
+                       for an encoder-only model (audio) the encode step
+                       (inputs, *, vision=None) -> logits [B, S, V]
+    mode == "decode":  (tokens, caches, *, vision=None) -> (logits, caches)
     """
     if mode == "prefill":
-        def prefill_step(tokens, *, s_max: int):
-            return lm.prefill(tokens, s_max=s_max)
+        if lm.encoder_only:
+            def encode_step(inputs, *, vision=None):
+                return lm.forward(inputs, vision=vision)
+            return encode_step
+
+        def prefill_step(tokens, *, s_max: int, vision=None):
+            return lm.prefill(tokens, s_max=s_max, vision=vision)
         return prefill_step
 
     if mode == "decode":
-        def decode_step(tokens, caches):
-            return lm.decode_step(tokens, caches)
+        def decode_step(tokens, caches, *, vision=None):
+            return lm.decode_step(tokens, caches, vision=vision)
         return decode_step
 
     raise ValueError(mode)

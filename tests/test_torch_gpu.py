@@ -1294,3 +1294,127 @@ def test_checkpoint_of_card_tensors_round_trips(tmp_path):
         for k, v in snapshot.items():
             assert back[k].is_cuda and back[k].dtype == v.dtype
             assert torch.equal(back[k], v), k
+
+
+# -- the vlm and audio families (smoke phase 15 (b), (d)) --------------------
+
+def _media_inputs(cfg, seed, B=3, S=16):
+    """Tokens (vlm: with its image context) or audio frames, float32
+    numpy-drawn, on the CPU."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        return {"frames": torch.from_numpy(rng.normal(
+            size=(B, S, 512)).astype(np.float32))}
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
+    out["vision"] = torch.from_numpy(rng.normal(size=(
+        B, cfg.vlm.num_image_tokens, cfg.vlm.vision_dim)).astype(np.float32))
+    return out
+
+
+def _media_forward(lm, inputs):
+    x = inputs.get("frames", inputs.get("tokens"))
+    return lm(x, vision=inputs.get("vision"))
+
+
+@pytest.mark.parametrize("arch", ["llama32_vision_11b", "hubert_xlarge"])
+def test_media_lm_on_the_card_matches_the_cpu(arch):
+    """Smoke phase 15 (b) at smoke size: forward logits to 1e-4; the vlm's
+    prefill and decode logits (the image context at every step) to 1e-4
+    and 8 greedy tokens equal; HuBERT's encode step, which moves position
+    0 when the last frame changes."""
+    from repro_torch.serve import ServeConfig, ServeEngine, make_serve_step
+    dev = _card()
+    cpu, card = _cpu_and_card_lm(arch, dev)
+    inp = _media_inputs(cpu.cfg, 0)
+    cinp = {k: v.to(dev) for k, v in inp.items()}
+    with torch.inference_mode():
+        np.testing.assert_allclose(_media_forward(card, cinp).cpu().numpy(),
+                                   _media_forward(cpu, inp).numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        if cpu.cfg.family == "audio":
+            enc = make_serve_step(card, mode="prefill")(cinp["frames"])
+            moved = cinp["frames"].clone()
+            moved[:, -1] += 1.0
+            other = make_serve_step(card, mode="prefill")(moved)
+            assert float((other[:, 0] - enc[:, 0]).abs().max()) > 1e-4
+            return
+        toks, v, cv = inp["tokens"], inp["vision"], cinp["vision"]
+        lc, cc = cpu.prefill(toks[:, :8], 16, vision=v)
+        lg, cg = card.prefill(toks[:, :8].to(dev), 16, vision=cv)
+        for t in range(8, 12):
+            np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(),
+                                       atol=1e-4, rtol=1e-4)
+            lc, cc = cpu.decode_step(toks[:, t:t + 1], cc, vision=v)
+            lg, cg = card.decode_step(toks[:, t:t + 1].to(dev), cg,
+                                      vision=cv)
+    want = ServeEngine(cpu, ServeConfig(max_seq=24), device="cpu").generate(
+        {"tokens": toks, "vision": v}, 8)
+    got = ServeEngine(card, ServeConfig(max_seq=24), device=dev).generate(
+        {"tokens": toks, "vision": v}, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["llama32_vision_11b", "hubert_xlarge"])
+def test_media_lm_on_the_card_is_deterministic(arch, dtype):
+    """Smoke phase 15 (b): two card runs (forward; the vlm's prefill and
+    decode steps too) bit-equal."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import LM
+    dev = _card()
+    cfg = get_smoke(arch).scaled(param_dtype=dtype, compute_dtype=dtype)
+    lm = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(5))
+    inp = {k: v.to(dev) for k, v in _media_inputs(cfg, 6, 4, 40).items()}
+
+    def run():
+        out = [_media_forward(lm, inp)]
+        if cfg.family == "vlm":
+            toks, v = inp["tokens"], inp["vision"]
+            logits, caches = lm.prefill(toks[:, :32], 40, vision=v)
+            out.append(logits)
+            for t in range(32, 40):
+                logits, caches = lm.decode_step(toks[:, t:t + 1], caches,
+                                                vision=v)
+                out.append(logits)
+        return out
+
+    with torch.inference_mode():
+        a, b = run(), run()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("arch", ["llama32_vision_11b", "hubert_xlarge"])
+def test_media_training_on_the_card_matches_the_cpu(arch):
+    """Smoke phase 15 (d): the loss and every gradient (``vision_norm``,
+    the cross ``wk`` / ``wv``, ``frontend_proj`` included) to 1e-5 in the
+    L2 norm, card against CPU, and the parameters after two AdamW steps to
+    1e-4, as ``tests/test_torch_train.py`` holds Adam-stepped parameters:
+    Adam divides each element by its own gradient's scale, so a
+    zero-initialised norm scale whose gradient is small in some elements
+    turns their rounding into an O(lr) move (HuBERT's smoke ``ln2`` read
+    2.6e-5 on an H100, as zamba2's ``A_log`` did in smoke phase 14)."""
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    dev = _card()
+    cpu, card = _cpu_and_card_lm(arch, dev)
+    batch = _media_inputs(cpu.cfg, 1, 4, 32)
+    batch["labels"] = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cpu.cfg.vocab, (4, 32)))
+    cbatch = {k: v.to(dev) for k, v in batch.items()}
+    out = []
+    for lm, b in ((cpu, batch), (card, cbatch)):
+        params = [p.requires_grad_(True) for p in lm.parameters()]
+        loss = lm.loss(b)
+        out.append((loss.detach(), torch.autograd.grad(loss, params)))
+    assert _rel_l2(out[1][0], out[0][0]) <= 1e-5
+    for g_card, g_cpu in zip(out[1][1], out[0][1]):
+        assert _rel_l2(g_card, g_cpu) <= 1e-5
+    states = []
+    for lm, b in ((cpu, batch), (card, cbatch)):
+        step, state = make_train_step(lm, AdamWConfig(warmup_steps=1)), \
+            init_train_state(lm)
+        for _ in range(2):
+            state, _ = step(state, b)
+        states.append(state)
+    for name, p in states[0].params.items():
+        assert _rel_l2(states[1].params[name], p) <= 1e-4, name

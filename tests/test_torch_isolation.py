@@ -8,7 +8,8 @@ through a ``JoinServer`` in front of a ``JoinService``, and runs a
 ``TokenBatcher`` batch from a ``JoinCorpus`` over Figure 1, and serves it
 greedily through a ``ServeEngine`` with features from a
 ``RelationalFeatureProvider`` over a Figure-1 ``JoinService`` (and the
-prompts through smoke zamba2 and xlstm models), then
+prompts through smoke zamba2, xlstm and Llama-3.2-Vision models, and
+frames through a smoke HuBERT's encode step), then
 trains it one ``Trainer`` step with a checkpoint (``ml_dtypes`` blocked
 too); a source scan finds no jax, ``repro`` or ``ml_dtypes`` import under
 ``src/repro_torch/`` (the serving, partitioning, model, data, training
@@ -89,6 +90,17 @@ for arch in ("zamba2_2p7b", "xlstm_350m"):
     got = ServeEngine(rec, ServeConfig(max_seq=12), device="cpu").generate(
         {"tokens": batch["tokens"]}, max_new=2)
     assert got.shape == (2, 2) and (got < rec.cfg.vocab).all()
+vcfg = get_smoke("llama32_vision_11b")
+vlm = LM(vcfg, device="cpu", generator=torch.Generator().manual_seed(0))
+image = torch.zeros((2, vcfg.vlm.num_image_tokens, vcfg.vlm.vision_dim))
+got = ServeEngine(vlm, ServeConfig(max_seq=12), device="cpu").generate(
+    {"tokens": batch["tokens"], "vision": image}, max_new=2)
+assert got.shape == (2, 2) and (got < vcfg.vocab).all()
+from repro_torch.serve import make_serve_step
+hub = LM(get_smoke("hubert_xlarge"), device="cpu",
+         generator=torch.Generator().manual_seed(0))
+enc = make_serve_step(hub, mode="prefill")(torch.zeros((2, 8, 512)))
+assert enc.shape == (2, 8, hub.vocab_padded) and hub.device.type == "cpu"
 import os, tempfile
 from repro_torch.train.optim import AdamWConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig

@@ -240,7 +240,8 @@ def test_attach_features_returns_a_device_tensor(services):
                                   plain.generate(batch, 4))
 
 
-@pytest.mark.parametrize("arch", ["qwen3_8b", "zamba2_2p7b", "xlstm_350m"])
+@pytest.mark.parametrize("arch", ["qwen3_8b", "zamba2_2p7b", "xlstm_350m",
+                                  "llama32_vision_11b"])
 def test_launch_serve_cli_serves_a_batch_on_the_cpu(arch, capsys):
     launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--features", "--batch", "2", "--prompt-len", "8",
@@ -251,6 +252,7 @@ def test_launch_serve_cli_serves_a_batch_on_the_cpu(arch, capsys):
             and ":" in ln and "features" not in ln]
     assert len(rows) == 2 and all(len(eval(r.split(": ", 1)[1])) == 3
                                   for r in rows)
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 items 4-5"):
-        launch_serve.main(["--arch", "llama32_vision_11b", "--smoke",
+    # an encoder has no decode path, as in the reference's launcher
+    with pytest.raises(SystemExit, match="encoder-only; no decode path"):
+        launch_serve.main(["--arch", "hubert_xlarge", "--smoke",
                            "--device", "cpu"])

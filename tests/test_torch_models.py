@@ -44,10 +44,8 @@ pytestmark = pytest.mark.slow
 
 DENSE = ["qwen3_8b", "gemma3_4b", "starcoder2_3b", "nemotron_4_15b"]
 # the moe family's tests are in test_torch_moe.py, the hybrid and ssm
-# families' in test_torch_ssm.py and test_torch_xlstm.py
-WAITING = sorted(set(ARCH_IDS) - set(DENSE)
-                 - {"granite_moe_1b_a400m", "deepseek_v2_236b",
-                    "zamba2_2p7b", "xlstm_350m"})
+# families' in test_torch_ssm.py and test_torch_xlstm.py, the vlm and
+# audio families' in test_torch_vlm.py and test_torch_audio.py
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -442,8 +440,34 @@ def test_meta_build_then_init_equals_a_direct_build():
     assert 0.5 * cfg.d_model ** -0.5 < w.std() < 1.5 * cfg.d_model ** -0.5
 
 
-@pytest.mark.parametrize("arch", WAITING)
-def test_unported_families_raise(arch):
-    cfg = get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 items 4-5"):
-        LM(cfg, device="cpu")
+# sha256 of each smoke model's state dict (keys, then float32 bytes) drawn
+# from torch.Generator().manual_seed(3) on the CPU, taken before the vlm
+# and audio families were added: adding them leaves every other family's
+# drawing order, and so its weights, as they were
+INIT_DIGESTS = {"qwen3_8b": "f8263b701989f0cb", "gemma3_4b": "2ab98f058fd47dd9",
+                "granite_moe_1b_a400m": "55d3882105428c0b",
+                "deepseek_v2_236b": "f3dffa344186ad9f",
+                "zamba2_2p7b": "cea4ab2c0a3ec406",
+                "xlstm_350m": "86cf4e8f08dda397"}
+
+
+@pytest.mark.parametrize("arch", sorted(INIT_DIGESTS))
+def test_seeded_weights_are_unchanged(arch):
+    import hashlib
+    lm = LM(get_smoke(arch), device="cpu",
+            generator=torch.Generator().manual_seed(3))
+    h = hashlib.sha256()
+    for k, t in lm.state_dict().items():
+        h.update(k.encode())
+        h.update(t.float().numpy().tobytes())
+    assert h.hexdigest()[:16] == INIT_DIGESTS[arch]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_family_builds(arch):
+    """Every architecture of the configs builds in the port (on the meta
+    device at full size, on the CPU as its smoke model)."""
+    full = LM(get_config(arch), device="meta")
+    assert full.device.type == "meta"
+    smoke = LM(get_smoke(arch), device="cpu")
+    assert smoke.device == torch.device("cpu")

@@ -401,6 +401,10 @@ def test_launch_train_cli_on_the_cpu(arch, tmp_path, capsys):
     assert all(np.isfinite(float(r[3])) for r in rows)
     assert sorted(p.name for p in (tmp_path / "c").iterdir()) == [
         "step_0000000002", "step_0000000004"]
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 items 4-5"):
-        launch_train.main(["--arch", "llama32_vision_11b", "--smoke",
-                           "--device", "cpu"])
+    # the token corpus has no images or frames for these families
+    for other, needs in (("llama32_vision_11b", "image context"),
+                         ("hubert_xlarge", "audio frames")):
+        with pytest.raises(SystemExit, match=f"needs {needs} .* the "
+                           "training corpus holds only tokens"):
+            launch_train.main(["--arch", other, "--smoke", "--device",
+                               "cpu"])
