@@ -168,7 +168,36 @@ Phases, each fatal on failure (exit code 1, no result line):
    encodes bit-equal; encode seconds beside the bound of a non-causal
    encoder); (d) both smoke models' loss, gradients and parameters after
    two AdamW steps, card against CPU, as phase 13 (a);
-16. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+16. data parallelism across ranks, each rank a process started with the
+   ``"spawn"`` method and each part joined with a timeout (a rank that
+   fails or hangs fails the phase): the batches come from
+   ``JoinCorpus.build`` over lastfm_A1 on the card (``expand_many``
+   launched) and the codes from lastfm_A1's A1 column desummarized on the
+   card.  (a) One NCCL rank per card (world = ``torch.cuda.device_count()``,
+   printed; the ``("data",)`` mesh of ``launch/mesh.py``): granite-moe at
+   full size, phase 13's 8 x 1,024 join-fed tokens and AdamW lr 1e-3, each
+   rank its rows.  Three uncompressed ``make_dp_shard_map_step`` steps in
+   deterministic mode against three ``make_train_step`` steps on the whole
+   batch from the same seed (one microbatch a rank): bit-equal parameters
+   and losses at world 1 (an all-reduce over one rank and a division by
+   1.0 change no bit), within ``DP_WORLD_TOL`` (L2, per tensor; the
+   grad norms within ``DP_GNORM_RTOL``) at a larger world; three
+   compressed steps from the same start, each loss within 0.05 of the
+   uncompressed step's, every residual finite.  Measured with no gate: ms
+   a step, the busy share and kernel seconds by name of one more compressed
+   step, and the compressed all-reduce of one step's gradients alone, by
+   kernel.  The cross-rank ``partition_histogram`` of the A1 column (one
+   contiguous slice a rank; k = 2, 4, 7, salt 3) equal to
+   ``np.bincount(hash_partition(...))`` and the one-device histogram, and
+   its seconds.  (b) Two ranks on the one card over gloo with CUDA tensors
+   (NCCL refuses two ranks on one card): one uncompressed DP step of the
+   qwen3_8b smoke model (2 layers, float32, 8 x 16; the warmup's first
+   step at the full lr, so that the parameters move ~3e-4) within 2e-5 of
+   the one-rank step on the whole batch, its loss within 2e-5 and its grad
+   norm within ``DP_GNORM_RTOL``; ``compressed_psum`` of each rank's
+   card tensors bit-equal to the same arrays' on the CPU; (a)'s histogram
+   over 2 ranks equal to numpy;
+17. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
 phase 5 (``expand_many``: the main path), zeroed again just before phase 6
@@ -180,8 +209,10 @@ three: the partitioned path), around phase 11 (the same three: the
 LM serving path's corpus build and features), around phase 12 (the
 same three: the moe serving path's), around phase 13
 (``expand_many``: the training path's corpus build), around phase 14
-(the three of phase 11: the recurrent families' serving path) and around
-phase 15 (the same three: the vlm and audio families').  ``--out``
+(the three of phase 11: the recurrent families' serving path), around
+phase 15 (the same three: the vlm and audio families') and around phase
+16 (``expand_many``: the data-parallel path's corpus build and column;
+the ranks launch none of the port's kernels).  ``--out``
 writes the per-shape measurements as JSON.
 """
 
@@ -3701,6 +3732,409 @@ def run_media(cat, queries, dev, power: str) -> dict:
     return out
 
 
+# -- phase 16: data parallelism across ranks ---------------------------------
+
+DP_ARCH = "granite_moe_1b_a400m"    # (a): phase 13's model, batch and lr
+DP_BATCH = TRAIN_FULL[DP_ARCH][1:]  # 8 x 1,024, split over the ranks
+DP_STEPS = 3
+DP_SEED = 16
+DP_LOSS_GAP = 0.05   # compressed against uncompressed loss, each step:
+                     # tests/test_dist.py's gate
+# (a) at a world of W cards: the DP parameters against the one-card step
+# with W microbatches (each a rank's rows: an MoE's capacity, and so its
+# drops, follow the rows a call sees), |a - b| / |b| (L2, per tensor).
+# The all-reduce may add the W float32 gradients in another order than the
+# microbatch loop, and a change in the last bit of an update can flip the
+# bf16 rounding of a parameter: one bf16 step, 2^-8, in every element at
+# most
+# most.  Rehearsed over 4 gloo ranks on the CPU (tests/test_torch_dp.py's
+# test_bf16_dp_steps_match_the_microbatched_step, granite's smoke config,
+# 3 steps): 1.06e-8
+DP_WORLD_TOL = 2.0 ** -8
+DP_GNORM_RTOL = 1e-5  # the grad norm against the one-rank step's, relative
+DP_SMOKE_TOL = 2e-5  # (b) max |DP - one rank|: tests/test_dist.py's gate
+# (b)'s AdamW: grad_clip 0 as tests/test_dist.py, but the warmup's first
+# step at the full lr (3e-4): Adam's first update is about lr in every
+# element, its sign the reduced gradient's, so a wrong all-reduce moves
+# the parameters far past the gate (and a wrong scale shows in the norm)
+DP_SMOKE_OPT = dict(grad_clip=0.0, warmup_steps=1)
+DP_SMOKE_BATCH = (8, 16)
+DP_HIST_K = (2, 4, 7)
+DP_HIST_SALT = 3
+DP_JOIN_S = {"a": 200, "b": 100}    # each part's ranks, spawn to join
+DP_COLLECTIVE_S = 120               # one collective's timeout in a rank
+DP_DIR = ROOT / "build" / "phase16"
+
+
+def dp_configs() -> dict:
+    """Phase 16's configurations: (a) granite-moe at full size, as phase
+    13 (c); (b) the qwen3_8b smoke config at 2 layers in float32, as
+    tests/test_dist.py."""
+    from repro_torch.configs import get_config, get_smoke
+    return dict(a=get_config(DP_ARCH), b=get_smoke("qwen3_8b").scaled(
+        num_layers=2, param_dtype="float32", compute_dtype="float32"))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(spec: dict) -> list:
+    """Run ``spec["world"]`` ranks of ``dp_rank`` (``launch/ranks.py``:
+    spawned, joined by DP_JOIN_S, what is left killed; a rank that failed
+    or hung fails the phase).  Returns each rank's results."""
+    from repro_torch.launch.ranks import run_ranks
+    run_ranks(dp_rank, spec["world"], (spec,),
+              timeout_s=DP_JOIN_S[spec["part"]])
+    return [torch.load(DP_DIR / f"{spec['part']}{r}.pt", weights_only=False)
+            for r in range(spec["world"])]
+
+
+def dp_rank(rank: int, spec: dict) -> None:
+    """One spawned rank of phase 16: joins the world on ``spec``'s backend
+    and address, builds the ``("data",)`` mesh on ``spec``'s device, runs
+    its part and writes the results for the parent."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        spec["backend"], init_method=spec["init"], rank=rank,
+        world_size=spec["world"],
+        timeout=datetime.timedelta(seconds=DP_COLLECTIVE_S))
+    try:
+        mesh = make_mesh((spec["world"],), ("data",), device=spec["device"])
+        part = dp_part_a if spec["part"] == "a" else dp_part_b
+        out = part(rank, spec, mesh, dev)
+        out["hist"] = dp_histograms(rank, spec["world"], mesh, dev)
+        torch.save(out, DP_DIR / f"{spec['part']}{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_histograms(rank: int, world: int, mesh, dev) -> dict:
+    """This rank's contiguous slice of lastfm_A1's A1 column through the
+    cross-rank ``partition_histogram``; the global counts and seconds."""
+    from repro_torch.dist.partition import partition_histogram
+    codes = np.load(DP_DIR / "a1.npy", mmap_mode="r")
+    lo, hi = len(codes) * rank // world, len(codes) * (rank + 1) // world
+    part = torch.from_numpy(np.array(codes[lo:hi])).to(dev)
+    out = dict(rows=(lo, hi))
+    for k in DP_HIST_K:
+        hist, s = timed(lambda: partition_histogram(
+            part, k, salt=DP_HIST_SALT, device=dev, mesh=mesh), dev)
+        out[k] = (hist.cpu().numpy(), s)
+    return out
+
+
+def dp_steps(step, state, batches, dev) -> tuple:
+    """Run ``step`` over ``batches``: (state, (losses, grad norms), seconds
+    a step)."""
+    losses, norms, seconds = [], [], []
+    for b in batches:
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        seconds.append(time.perf_counter() - t0)
+    return state, (losses, norms), seconds
+
+
+def ms_list(seconds) -> str:
+    return " / ".join(f"{s * 1e3:.3f}" for s in seconds)
+
+
+def dp_part_a(rank: int, spec: dict, mesh, dev) -> dict:
+    """(a) granite-moe at full size: the one-card step (rank 0; a
+    microbatch a rank) against the uncompressed DP step (deterministic
+    mode), then compressed DP steps,
+    one profiled, and the compressed all-reduce of one step's gradients
+    alone, profiled."""
+    from repro_torch.models.model import LM
+    from repro_torch.train import (AdamWConfig, compressed_psum,
+                                   init_train_state, make_dp_shard_map_step,
+                                   make_train_step)
+    cfg, world = spec["cfg"], spec["world"]
+    ocfg = AdamWConfig(**spec["opt"])
+    whole = [{k: v.to(dev) for k, v in b.items()}
+             for b in torch.load(DP_DIR / "batches.pt")]
+    rows = whole[0]["tokens"].shape[0] // world
+    local = [{k: v[rank * rows:(rank + 1) * rows] for k, v in b.items()}
+             for b in whole]
+
+    def build():
+        return LM(cfg, device=dev,
+                  generator=torch.Generator(dev).manual_seed(DP_SEED))
+
+    out: dict = dict(rows=rows)
+    with deterministic_mode():
+        if rank == 0:
+            lm = build()
+            state, (out["one_losses"], out["one_norms"]), out["one_s"] = \
+                dp_steps(
+                make_train_step(lm, ocfg, microbatches=world),
+                init_train_state(lm), whole, dev)
+            want = {n: p.detach().clone() for n, p in state.params.items()}
+            del lm, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        lm = build()
+        out["params"] = sum(p.numel() for p in lm.parameters())
+        init, step = make_dp_shard_map_step(lm, ocfg, mesh, compress=False)
+        state, (out["exact_losses"], out["exact_norms"]), out["exact_s"] = \
+            dp_steps(step, init(init_train_state(lm).params), local, dev)
+    if rank == 0:
+        out["bit_equal"] = all(torch.equal(state.params[n], p)
+                               for n, p in want.items())
+        out["rel_l2"] = 0.0 if out["bit_equal"] else max(
+            rel_l2(state.params[n], p) for n, p in want.items())
+        del want
+    del lm, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak(dev)
+    lm = build()
+    init, step = make_dp_shard_map_step(lm, ocfg, mesh, compress=True)
+    state, (out["comp_losses"], _), out["comp_s"] = dp_steps(
+        step, init(init_train_state(lm).params), local, dev)
+    out["residual_finite"] = all(bool(torch.isfinite(r).all())
+                                 for r in state.residual.values())
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, local[-1])
+
+    _, wall = timed(one_step, dev)
+    events = profiled_events(one_step, dev, cpu=False)
+    out["busy"] = busy_of(event_seconds(events), wall)
+    out["step_kernels"] = kernel_seconds_by_name(events)
+    out["peak_device_bytes"] = peak_bytes(dev)
+    # the compressed all-reduce of one step's gradients, alone
+    _, grads = loss_and_grads(lm, local[0])
+    group = mesh.get_group("data")
+
+    def reduce():
+        for n, g in grads.items():
+            compressed_psum(g, group, state.residual[n])
+
+    reduce()
+    _, out["reduce_s"] = timed(reduce, dev)
+    out["reduce_kernels"] = kernel_seconds_by_name(
+        profiled_events(reduce, dev, cpu=False), top=12)
+    return out
+
+
+def dp_part_b(rank: int, spec: dict, mesh, dev) -> dict:
+    """(b) the smoke model's uncompressed DP step on this rank's rows, and
+    ``compressed_psum`` of card tensors against the same arrays on the
+    CPU, both over the one gloo group."""
+    from repro_torch.models.model import LM
+    from repro_torch.train import (AdamWConfig, compressed_psum,
+                                   init_train_state, make_dp_shard_map_step)
+    cfg, world = spec["cfg"], spec["world"]
+    batch = torch.load(DP_DIR / "smoke_batch.pt")
+    rows = batch["tokens"].shape[0] // world
+    local = {k: v[rank * rows:(rank + 1) * rows].to(dev)
+             for k, v in batch.items()}
+    lm = LM(cfg, device=dev,
+            generator=torch.Generator(dev).manual_seed(DP_SEED))
+    init, step = make_dp_shard_map_step(lm, AdamWConfig(**DP_SMOKE_OPT),
+                                        mesh, compress=False)
+    state, m = step(init(init_train_state(lm).params), local)
+    out = dict(rows=rows, loss=float(m["loss"]),
+               grad_norm=float(m["grad_norm"]),
+               params={n: p.detach().cpu() for n, p in state.params.items()})
+    group = mesh.get_group("data")
+    rng = np.random.default_rng(DP_SEED + rank)
+    psum = {}
+    for shape, with_res in (((33, 7), True), ((4096,), False)):
+        g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        r = torch.from_numpy((rng.standard_normal(shape) * 1e-2).astype(
+            np.float32)) if with_res else None
+        card = compressed_psum(g.to(dev), group,
+                               None if r is None else r.to(dev))
+        cpu = compressed_psum(g, group, r)
+        psum[shape] = all(torch.equal(a.cpu(), b)
+                          for a, b in zip(card, cpu))
+    out["psum_bit_equal"] = psum
+    return out
+
+
+def dp_run_b(cfg, want: dict, dev) -> dict:
+    """(b): two gloo ranks on the one card against the one-rank step on
+    the whole batch; each rank's histogram of DP_DIR's codes against
+    ``want``."""
+    from repro_torch.models.model import LM
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+    t1 = time.perf_counter()
+    batch = seeded_batch(cfg.vocab, *DP_SMOKE_BATCH, DP_SEED, "cpu")
+    torch.save(batch, DP_DIR / "smoke_batch.pt")
+    ranks = spawn_ranks(dict(part="b", backend="gloo", device=dev.type,
+                             world=2, init=f"tcp://localhost:{free_port()}",
+                             cfg=cfg))
+    lm = LM(cfg, device=dev,
+            generator=torch.Generator(dev).manual_seed(DP_SEED))
+    p0 = {n: p.detach().clone() for n, p in lm.named_parameters()}
+    state, m = make_train_step(lm, AdamWConfig(**DP_SMOKE_OPT))(
+        init_train_state(lm), {k: v.to(dev) for k, v in batch.items()})
+    moved = max(float((p.detach() - p0[n]).abs().max())
+                for n, p in state.params.items())
+    diff = max(float((r["params"][n].to(dev) - p.detach()).abs().max())
+               for r in ranks for n, p in state.params.items())
+    loss_gap = max(abs(r["loss"] - float(m["loss"])) for r in ranks)
+    norm_gap = max(abs(r["grad_norm"] / float(m["grad_norm"]) - 1)
+                   for r in ranks)
+    check(moved > 10 * DP_SMOKE_TOL, f"(b) the one-rank step moves the "
+          f"parameters {moved:.3g}, too little for the gate {DP_SMOKE_TOL}")
+    check(diff < DP_SMOKE_TOL, f"(b) DP over 2 gloo ranks is {diff:.3g} "
+          f"from the one-rank step (> {DP_SMOKE_TOL})")
+    check(loss_gap < DP_SMOKE_TOL, f"(b) losses {[r['loss'] for r in ranks]}"
+          f" vs {float(m['loss'])}")
+    check(norm_gap <= DP_GNORM_RTOL, f"(b) grad norms "
+          f"{[r['grad_norm'] for r in ranks]} vs {float(m['grad_norm'])}")
+    check(all(all(r["psum_bit_equal"].values()) for r in ranks),
+          f"(b) compressed_psum on the card vs the CPU: "
+          f"{[r['psum_bit_equal'] for r in ranks]}")
+    for r in ranks:
+        for k in DP_HIST_K:
+            check(np.array_equal(r["hist"][k][0], want[k]),
+                  f"(b) cross-rank partition_histogram k={k} vs numpy")
+    b = dict(seconds=time.perf_counter() - t1, max_diff=diff, moved=moved,
+             loss=ranks[0]["loss"], one_loss=float(m["loss"]),
+             loss_gap=loss_gap, norm_gap=norm_gap,
+             hist_s={k: ranks[0]["hist"][k][1] for k in DP_HIST_K})
+    del lm, state
+    print(f"  (b) world 2 over gloo, CUDA tensors on the one card: "
+          f"{cfg.name} (2 layers, float32), one uncompressed DP step of "
+          f"{DP_SMOKE_BATCH[0]} x {DP_SMOKE_BATCH[1]} ({ranks[0]['rows']} "
+          f"rows a rank): {diff:.3g} from the one-rank step on the whole "
+          f"batch (gate {DP_SMOKE_TOL}; the step moves the parameters "
+          f"{moved:.3g}), loss {loss_gap:.3g} and grad norm {norm_gap:.3g} "
+          f"(relative) apart; compressed_psum of card tensors bit-equal to "
+          f"the CPU's on both ranks; the histogram of (a) over 2 ranks "
+          f"equal to numpy ({b['seconds']:.1f}s)")
+    return b
+
+
+def run_data_parallel(cat, queries, mono_a1, dev, power: str) -> dict:
+    """Phase 16: data parallelism across ranks, the ranks spawned: (a) one
+    NCCL rank per card, (b) two gloo ranks on the one card."""
+    from repro_torch.core import engine
+    from repro_torch.data import JoinCorpus, TokenBatcher
+    from repro_torch.dist.partition import hash_partition, partition_histogram
+    t0 = time.perf_counter()
+    cfgs = dp_configs()
+    out: dict = dict(power=power)
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    corpus = JoinCorpus.build(cat, queries["lastfm_A1"], vocab=256,
+                              device=dev)
+    batcher = TokenBatcher(JoinCorpus(corpus.gfjs, cfgs["a"].vocab,
+                                      corpus.tokens_per_row), *DP_BATCH,
+                           device=dev)
+    torch.save([{k: v.cpu() for k, v in batcher.next_batch().items()}
+                for _ in range(DP_STEPS)], DP_DIR / "batches.pt")
+    del corpus, batcher
+    col = engine.desummarize(mono_a1, decode=False, device=dev)["A1"]
+    codes = col.cpu().numpy()
+    np.save(DP_DIR / "a1.npy", codes)
+    want = {}
+    for k in DP_HIST_K:
+        want[k] = np.bincount(hash_partition(codes, k, salt=DP_HIST_SALT),
+                              minlength=k)
+        one = partition_histogram(col, k, salt=DP_HIST_SALT, device=dev)
+        check(np.array_equal(one.cpu().numpy(), want[k]),
+              f"one-device partition_histogram k={k} vs numpy")
+    out["hist_want"] = {k: v.tolist() for k, v in want.items()}
+    del col
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) one NCCL rank per card
+    world = torch.cuda.device_count()
+    print(f"  (a) world {world}: one NCCL rank per card "
+          f"(torch.cuda.device_count() = {world})")
+    check(DP_BATCH[0] % world == 0, f"(a) {DP_BATCH[0]} rows do not split "
+          f"over {world} ranks")
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(dict(
+        part="a", backend="nccl", device=dev.type, world=world,
+        init=f"tcp://localhost:{free_port()}", cfg=cfgs["a"],
+        opt=dict(lr=TRAIN_LR, warmup_steps=2,
+                 total_steps=TRAIN_FULL[DP_ARCH][0])))
+    a = ranks[0]
+    a["seconds"] = time.perf_counter() - t1
+    if world == 1:
+        check(a["bit_equal"] and a["exact_losses"] == a["one_losses"]
+              and a["exact_norms"] == a["one_norms"],
+              "(a) the one-rank DP step differs from make_train_step")
+    else:
+        check(a["rel_l2"] <= DP_WORLD_TOL, f"(a) the DP parameters are "
+              f"{a['rel_l2']:.3g} from the one-card step's (> "
+              f"{DP_WORLD_TOL:.3g})")
+        check(np.allclose(a["exact_norms"], a["one_norms"], atol=0,
+                          rtol=DP_GNORM_RTOL), f"(a) grad norms "
+              f"{a['exact_norms']} vs {a['one_norms']}")
+    gaps = [abs(c - e) for c, e in zip(a["comp_losses"], a["exact_losses"])]
+    check(max(gaps) < DP_LOSS_GAP, f"(a) compressed losses "
+          f"{a['comp_losses']} vs {a['exact_losses']}")
+    check(all(r["residual_finite"] for r in ranks),
+          "(a) a residual is not finite")
+    for r in ranks:
+        for k in DP_HIST_K:
+            check(np.array_equal(r["hist"][k][0], want[k]),
+                  f"(a) cross-rank partition_histogram k={k} vs numpy")
+    print(f"  (a) {cfgs['a'].name} at full size ({a['params']} parameters,"
+          f" bf16), {DP_STEPS} steps of {DP_BATCH[0]} x {DP_BATCH[1]} "
+          f"join-fed tokens, {a['rows']} rows a rank, AdamW lr {TRAIN_LR}: "
+          f"uncompressed DP parameters "
+          + ("bit-equal to make_train_step's, losses and grad norms equal"
+             if world == 1 else f"{a['rel_l2']:.3g} (L2) from "
+             f"make_train_step(microbatches={world})'s on one card")
+          + f"; losses {a['exact_losses']}")
+    print(f"  (a) compressed (int8, error feedback): losses "
+          f"{a['comp_losses']}, at most {max(gaps):.3g} from the "
+          f"uncompressed (gate {DP_LOSS_GAP}); residuals finite")
+    print(f"  (a) ms a step (no gate; phase 13's granite step: 1,081.7-"
+          f"1,097.1 ms in PERF.md §5): one card, deterministic "
+          f"{ms_list(a['one_s'])}; "
+          f"DP uncompressed, deterministic {ms_list(a['exact_s'])}; DP "
+          f"compressed {ms_list(a['comp_s'])}; one more compressed step "
+          f"{fmt_busy(a['busy'])}; peak device bytes "
+          f"{a['peak_device_bytes']} [{power}]")
+    print("      card time by kernel over that step (s): " + ", ".join(
+        f"{k} {v[0]:.6f} x{v[1]}" for k, v in a["step_kernels"].items()))
+    print(f"  (a) the compressed all-reduce of one step's gradients alone: "
+          f"{a['reduce_s']:.6f}s (int32 payload {4 * a['params']} B); "
+          f"by kernel (s): " + ", ".join(
+              f"{k} {v[0]:.6f} x{v[1]}"
+              for k, v in a["reduce_kernels"].items()))
+    print(f"  (a) cross-rank partition_histogram of lastfm_A1's A1 column "
+          f"({len(codes)} codes, rank 0 rows {a['hist']['rows']}), salt "
+          f"{DP_HIST_SALT}: equal to np.bincount(hash_partition) and the "
+          f"one-device histogram; seconds " + ", ".join(
+              f"k={k} {a['hist'][k][1]:.6f}" for k in DP_HIST_K))
+    out["a"] = {**{k: v for k, v in a.items() if k != "hist"},
+                "world": world,
+                "hist_s": {k: a["hist"][k][1] for k in DP_HIST_K}}
+
+    # (b) two gloo ranks on the one card
+    out["b"] = dp_run_b(cfgs["b"], want, dev)
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase {out['seconds']:.1f}s (a) {a['seconds']:.1f}s "
+          f"[{power}]")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the per-shape measurements "
@@ -3733,7 +4167,7 @@ def main() -> int:
 
 
 def smoke(dev, lastfm_kw, out_path, header) -> list:
-    """Phases 3-15 on ``dev``; returns the kernels line's entries.  (The
+    """Phases 3-16 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
     from repro_torch.kernels.dense_message import dense_message
@@ -3979,6 +4413,24 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     print(f"vlm and audio serving path: launches {media['launches']}, "
           f"numpy fallbacks=0")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    expand_many.launches = mul_segsum.launches = 0
+    run_boundaries.launches = 0
+    fb10 = fallbacks.value
+    print("data parallelism across ranks:")
+    data_parallel = run_data_parallel(cat, queries, mono_a1, dev,
+                                      header["power"])
+    data_parallel["launches"] = {"expand_many": expand_many.launches,
+                                 "mul_segsum": mul_segsum.launches,
+                                 "run_boundaries": run_boundaries.launches}
+    check(data_parallel["launches"]["expand_many"] > 0,
+          "the data-parallel path launched no expand_many kernel")
+    check(fallbacks.value == fb10,
+          "numpy fallbacks on the data-parallel path")
+    print(f"data-parallel path: launches {data_parallel['launches']}, "
+          f"numpy fallbacks=0")
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -3991,7 +4443,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             thin_launches=thin_launches, k_sweep=k_sweep, rates=rates,
             service=service, partitioned=partitioned, lm_serving=lm,
             moe_serving=moe, training=training, recurrent=recurrent,
-            media=media,
+            media=media, data_parallel=data_parallel,
             previous_ms={"/".join(map(str, k)): v
                          for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(

@@ -2,16 +2,18 @@
 
 :mod:`repro_torch.dist.partition` carries the GJ-side layer (DESIGN.md
 §15): hash-partitioning of encoded potentials on a planned partition
-variable, partition and potential histograms on one torch device, and
-parallel desummarization of both monolithic and sharded summaries;
+variable, partition and potential histograms on one torch device or
+summed across the ranks of a mesh axis, and parallel desummarization of both monolithic and sharded summaries;
 :mod:`repro_torch.dist.actions` the process-pool shard executor and its
 wire format (DESIGN.md §17).
 
 The reference's package also carries the model-sharding rules
-(``repro/dist/sharding.py``, ``act_sharding.py``).  They need more than
-one device and are not ported yet (ROADMAP.md queue 1 item 6: sharding,
-with the data-parallel train step), so asking for their names raises
-:class:`AttributeError` naming that item.
+(``repro/dist/sharding.py``, ``act_sharding.py``).  They are the placement
+half of data and model parallelism and are not ported yet (ROADMAP.md
+queue 1 item 6b: DTensor placements from logical axes and the sharded
+train step), so asking for their names raises :class:`AttributeError`
+naming that item.  The explicit half, the data-parallel train step and
+its compressed all-reduce, is in :mod:`repro_torch.train.train_step`.
 Submodule re-exports resolve lazily (PEP 562), as in the reference.
 """
 
@@ -36,8 +38,8 @@ def __getattr__(name):
     if name in _SHARDING or name in _ACT:
         raise AttributeError(
             f"{name!r} belongs to the model-sharding rules, which are not "
-            "ported yet (ROADMAP.md queue 1 item 6: sharding and "
-            "everything that needs more than one device)")
+            "ported yet (ROADMAP.md queue 1 item 6b: DTensor placements "
+            "from logical axes and the sharded train step)")
     if name in _PARTITION:
         return getattr(importlib.import_module("repro_torch.dist.partition"),
                        name)

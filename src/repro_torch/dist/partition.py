@@ -24,8 +24,10 @@ instead of a jax mesh: :func:`hash_partition_device` is a torch twin of
 :func:`hash_partition`, bit-identical to it, and
 :func:`sharded_potential_counts` / :func:`partition_histogram` are one
 ``torch.bincount`` there (each raises for ``device="cuda"`` without a
-card).  The cross-rank version, an all-reduce over the ranks' counts,
-waits for a multi-card configuration (ROADMAP.md queue 1).
+card).  Given a ``torch.distributed`` device mesh, each rank counts its
+own slice of the codes and an all-reduce SUM over the mesh axis's
+process group gives every rank the global histogram, as the reference's
+``psum`` over the axis does.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Dict, List, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import engine
 from repro_torch.core.gfjs import (GFJS, ShardedGFJS, desummarize,
@@ -274,37 +277,44 @@ def partition_counts(enc: EncodedQuery, scheme: PartitionScheme) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Device primitives (one torch device; the reference's shard_map over a
-# mesh axis plus psum becomes one bincount there).
+# Device primitives (one torch device; with a mesh, one rank's slice of
+# the codes on each rank's device, summed over a mesh axis).
 # ---------------------------------------------------------------------------
 
 def partition_histogram(codes, num_partitions: int, *, salt: int = 0,
-                        device: Union[str, torch.device] = "cuda"
-                        ) -> torch.Tensor:
+                        device: Union[str, torch.device] = "cuda",
+                        mesh=None, axis: str = "data") -> torch.Tensor:
     """Per-partition row counts of a code column, on ``device``.
 
     Hash on the device, then histogram the partition ids with
-    :func:`sharded_potential_counts`.  Matches
-    ``np.bincount(hash_partition(codes, k))`` exactly.
+    :func:`sharded_potential_counts` (over ``mesh``'s ``axis`` when given,
+    ``codes`` then this rank's slice).  Matches
+    ``np.bincount(hash_partition(codes, k))`` of the whole column exactly.
     """
     return sharded_potential_counts(
         hash_partition_device(codes, num_partitions, salt=salt,
                               device=device),
-        num_partitions, device=device)
+        num_partitions, device=device, mesh=mesh, axis=axis)
 
 
 def sharded_potential_counts(codes, num_codes: int, *,
-                             device: Union[str, torch.device] = "cuda"
-                             ) -> torch.Tensor:
+                             device: Union[str, torch.device] = "cuda",
+                             mesh=None, axis: str = "data") -> torch.Tensor:
     """GROUP BY count of dense codes, int64 on ``device``.
 
     The quantitative-learning histogram of one encoded column, equal to
     ``np.bincount(codes, minlength=num_codes)``; codes past ``num_codes``
-    are dropped, as the reference's dead padding slot drops them.
+    are dropped, as the reference's dead padding slot drops them.  With a
+    ``mesh``, ``codes`` are this rank's slice, and the result is the
+    all-reduce SUM of every rank's counts over ``axis``'s process group:
+    the histogram of the whole column, on every rank.
     """
     dev = engine.resolve_device(device)
     t = torch.as_tensor(codes).to(device=dev, dtype=torch.int64)
-    return torch.bincount(t, minlength=num_codes)[:num_codes]
+    hist = torch.bincount(t, minlength=num_codes)[:num_codes]
+    if mesh is not None:
+        dist.all_reduce(hist, group=mesh.get_group(axis))
+    return hist
 
 
 # ---------------------------------------------------------------------------

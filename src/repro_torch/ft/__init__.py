@@ -6,5 +6,5 @@ checkpoint/; this package hosts their test scenarios and docs.
 partitioned build's shard report uses its ``flag_shard_stragglers``; the
 trainer's crash and resume is ``repro_torch/train/trainer.py`` over
 ``repro_torch/checkpoint``.  Elastic restore onto another mesh waits for
-sharding, ROADMAP.md queue 1 item 6.)
+sharding, ROADMAP.md queue 1 item 6b.)
 """

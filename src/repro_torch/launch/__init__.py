@@ -1,1 +1,3 @@
-"""Launchers: the serving CLI (``python -m repro_torch.launch.serve``)."""
+"""Launchers: device meshes (``launch/mesh.py``), spawned ranks of one
+world (``launch/ranks.py``), the serving and training CLIs
+(``python -m repro_torch.launch.serve`` / ``launch.train``)."""

@@ -1418,3 +1418,85 @@ def test_media_training_on_the_card_matches_the_cpu(arch):
         states.append(state)
     for name, p in states[0].params.items():
         assert _rel_l2(states[1].params[name], p) <= 1e-4, name
+
+
+# -- data parallelism across ranks (smoke phase 16) ----------------------------
+
+@pytest.fixture
+def nccl_world(tmp_path):
+    """A one-rank NCCL world in this process, and its ``("data",)`` mesh
+    on the card."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    _card()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1,), ("data",), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3_8b", "granite_moe_1b_a400m"])
+def test_one_rank_nccl_dp_step_is_bit_equal_to_train_step(nccl_world, arch,
+                                                          monkeypatch):
+    """Smoke phase 16 (a) at world 1: three uncompressed DP steps equal
+    three ``make_train_step`` steps from the same seed bit for bit (an
+    all-reduce over one rank and a division by 1.0 change no bit); three
+    compressed steps keep each loss within 0.05 of the uncompressed
+    step's, every residual finite."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import LM
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_dp_shard_map_step, make_train_step)
+    dev = torch.device("cuda")
+    cfg = get_smoke(arch)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    batches = [_train_batch(cfg.vocab, dev, i) for i in range(3)]
+
+    def run(dp: bool, compress: bool = False):
+        lm = LM(cfg, device=dev,
+                generator=torch.Generator(dev).manual_seed(3))
+        state = init_train_state(lm)
+        if dp:
+            init, step = make_dp_shard_map_step(lm, ocfg, nccl_world,
+                                                compress=compress)
+            state = init(state.params)
+        else:
+            step = make_train_step(lm, ocfg)
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = [run(False), run(True), run(True, compress=True)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (want, lw), (got, lg), (comp, lc) = runs
+    assert lg == lw
+    for n, p in want.params.items():
+        assert torch.equal(got.params[n], p), n
+        assert torch.equal(got.opt.m[n], want.opt.m[n]), n
+        assert torch.equal(got.opt.v[n], want.opt.v[n]), n
+    assert max(abs(a - b) for a, b in zip(lc, lg)) < 0.05
+    assert all(torch.isfinite(r).all() for r in comp.residual.values())
+
+
+@pytest.mark.parametrize("k", [2, 4, 7])
+def test_cross_rank_partition_histogram_on_the_card_equals_numpy(nccl_world,
+                                                                 k):
+    from repro_torch.dist.partition import (hash_partition,
+                                            partition_histogram)
+    dev = torch.device("cuda")
+    codes = np.random.default_rng(k).integers(0, 1 << 31, 1 << 20)
+    hist = partition_histogram(torch.from_numpy(codes).to(dev), k, salt=3,
+                               device=dev, mesh=nccl_world)
+    assert hist.device.type == "cuda" and hist.dtype == torch.int64
+    np.testing.assert_array_equal(
+        hist.cpu().numpy(),
+        np.bincount(hash_partition(codes, k, salt=3), minlength=k))

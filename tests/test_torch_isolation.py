@@ -11,10 +11,13 @@ greedily through a ``ServeEngine`` with features from a
 prompts through smoke zamba2, xlstm and Llama-3.2-Vision models, and
 frames through a smoke HuBERT's encode step), then
 trains it one ``Trainer`` step with a checkpoint (``ml_dtypes`` blocked
-too); a source scan finds no jax, ``repro`` or ``ml_dtypes`` import under
-``src/repro_torch/`` (the serving, partitioning, model, data, training
-and checkpoint modules included) or in ``chip_smoke.py``; and a ``cuda``
-entry point without a card raises instead of running on the CPU.
+too), and imports the mesh functions, the rank spawner and the
+data-parallel step; a source
+scan finds no jax, ``repro`` or ``ml_dtypes`` import under
+``src/repro_torch/`` (the serving, partitioning, model, data, training,
+checkpoint, mesh and data-parallel modules included) or in
+``chip_smoke.py``; and a ``cuda`` entry point (a ``cuda`` mesh among
+them) without a card raises instead of running on the CPU.
 """
 
 import os
@@ -33,6 +36,7 @@ from repro_torch.core import engine
 from repro_torch.data import JoinCorpus, TokenBatcher
 from repro_torch.core.potentials import Factor
 from repro_torch.dist.partition import partition_histogram
+from repro_torch.launch.mesh import make_local_mesh, make_mesh
 from repro_torch.models.model import LM
 from repro_torch.relational.synth import figure1
 from repro_torch.serve import ServeConfig, ServeEngine
@@ -112,6 +116,9 @@ trainer = Trainer(lm, AdamWConfig(), TokenBatcher(corpus, 2, 8, device="cpu"),
 state = trainer.run()
 assert int(state.opt.step) == 1 and os.listdir(ckpt) == ["step_0000000001"]
 assert trainer.metrics_log[0]["step"] == 1
+from repro_torch.launch.mesh import make_local_mesh, make_mesh
+from repro_torch.launch.ranks import run_ranks
+from repro_torch.train import compressed_psum, make_dp_shard_map_step
 assert not any(m in ("jax", "ml_dtypes")
                or m.startswith(("jax.", "repro.", "ml_dtypes."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -155,7 +162,8 @@ def test_source_imports_neither_jax_nor_reference():
             "interop.py", "train/__init__.py", "train/optim.py",
             "train/train_step.py", "train/trainer.py",
             "checkpoint/__init__.py", "checkpoint/store.py",
-            "launch/train.py"} <= names
+            "launch/train.py", "launch/mesh.py",
+            "launch/ranks.py"} <= names
     bad = {str(f.relative_to(ROOT)): _IMPORT.findall(f.read_text())
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -169,7 +177,8 @@ def test_source_imports_neither_jax_nor_reference():
                                    "partitioned_facade", "lm", "moe_lm",
                                    "hybrid_lm", "ssm_lm",
                                    "serve_engine", "join_corpus",
-                                   "token_batcher", "trainer"])
+                                   "token_batcher", "trainer", "mesh",
+                                   "local_mesh"])
 def test_cuda_without_a_card_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cat, q = figure1()
@@ -208,6 +217,8 @@ def test_cuda_without_a_card_raises(monkeypatch, entry):
             LM(get_smoke("qwen3_8b"), device="cpu"), AdamWConfig(),
             TokenBatcher(JoinCorpus(gfjs, vocab=256), 2, 8, device="cpu"),
             TrainerConfig()),
+        "mesh": lambda: make_mesh((1,), ("data",)),
+        "local_mesh": lambda: make_local_mesh(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

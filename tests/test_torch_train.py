@@ -51,9 +51,7 @@ from repro_torch.models.model import LM
 from repro_torch.relational.synth import lastfm_like
 from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.train import optim
-from repro_torch.train.train_step import (TrainState, compressed_psum,
-                                          init_train_state,
-                                          make_dp_shard_map_step,
+from repro_torch.train.train_step import (TrainState, init_train_state,
                                           make_train_step)
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -380,13 +378,6 @@ def test_serving_after_training_runs_without_gradients():
     with torch.inference_mode():
         logits = lm(toks["tokens"])
     assert not logits.requires_grad
-
-
-def test_data_parallel_modes_wait_for_queue_item_6():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        make_dp_shard_map_step(None, optim.AdamWConfig(), None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        compressed_psum(torch.zeros(3), "data")
 
 
 @pytest.mark.parametrize("arch", ["qwen3_8b", "zamba2_2p7b", "xlstm_350m"])
