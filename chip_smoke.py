@@ -197,7 +197,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    norm within ``DP_GNORM_RTOL``; ``compressed_psum`` of each rank's
    card tensors bit-equal to the same arrays' on the CPU; (a)'s histogram
    over 2 ranks equal to numpy;
-17. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+17. the sharded train step: ``train_step.make_train_step`` on parameters
+   that ``launch/specs.py``'s ``place_params`` replaced by DTensors placed
+   by ``arch_rules`` and on a batch placed by ``batch_shardings``, the
+   ranks spawned and joined as in phase 16: one NCCL rank per card on
+   ``make_local_mesh(model=world)``, Qwen3-8B at phase 13 (d)'s width and
+   depth, three steps of 2 x 4,096 join-fed tokens (from
+   ``JoinCorpus.build`` over lastfm_A1 on the card) in deterministic mode,
+   plain and then placed from the same seed: the parameters (and losses)
+   bit-equal at world 1 (or within phase 13's 1e-5, L2, and the tensors
+   named); at a larger world each step's loss within ``SP_LOSS_GAP`` of
+   the one-card step's (the bf16 products split over the model axis).
+   Measured with no
+   gate: ms a step, plain and placed, the placement's time, peak bytes,
+   and the busy share and kernel seconds by name of one more placed step.
+   (Several gloo ranks sharing the card cannot stand in for a larger
+   world: DTensor's all-gather, the functional collective, crashes on
+   gloo with CUDA tensors in torch 2.11; tests/test_torch_sharding.py
+   runs a (2, 2) mesh on the CPU);
+18. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
 phase 5 (``expand_many``: the main path), zeroed again just before phase 6
@@ -210,9 +228,10 @@ LM serving path's corpus build and features), around phase 12 (the
 same three: the moe serving path's), around phase 13
 (``expand_many``: the training path's corpus build), around phase 14
 (the three of phase 11: the recurrent families' serving path), around
-phase 15 (the same three: the vlm and audio families') and around phase
+phase 15 (the same three: the vlm and audio families'), around phase
 16 (``expand_many``: the data-parallel path's corpus build and column;
-the ranks launch none of the port's kernels).  ``--out``
+the ranks launch none of the port's kernels) and around phase 17
+(``expand_many``: the sharded path's corpus build).  ``--out``
 writes the per-shape measurements as JSON.
 """
 
@@ -4135,6 +4154,199 @@ def run_data_parallel(cat, queries, mono_a1, dev, power: str) -> dict:
     return out
 
 
+# -- phase 17: the sharded train step (DTensor placements) ------------------
+
+SP_ARCH = "qwen3_8b"                 # phase 13 (d)'s model and batch
+SP_BATCH = TRAIN_FULL[SP_ARCH][1:]   # 2 x 4,096 join-fed tokens
+SP_STEPS = 3
+SP_SEED = 17
+SP_OPT = dict(lr=TRAIN_LR, warmup_steps=1)
+# at a world of more than one card the model axis splits the bf16
+# products, whose partial sums then add in another order; Adam turns a
+# gradient's rounding into a move of about lr (a sign), so the parameters
+# are not held there, each step's loss is: within tests/test_dist.py's
+# gap, as phase 16's compressed steps (rehearsed over 2 gloo ranks on the
+# CPU, the qwen3_8b smoke config: parameters 0.069 apart, L2 relative)
+SP_LOSS_GAP = DP_LOSS_GAP
+SP_JOIN_S = 150                      # the ranks, spawn to join
+SP_DIR = ROOT / "build" / "phase17"
+
+
+def sp_configs() -> dict:
+    """Phase 17's configuration: Qwen3-8B at full width, at phase 13
+    (d)'s depth (``cfg``), and its full depth."""
+    train = train_configs()
+    return dict(cfg=train["full"][SP_ARCH], depth=train["depth"][SP_ARCH])
+
+
+def sp_rank(rank: int, spec: dict) -> None:
+    """One spawned rank of phase 17: joins the world on ``spec``'s backend
+    and address, runs (a) and writes the results for the parent."""
+    import datetime
+    import torch.distributed as dist
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        spec["backend"], init_method=spec["init"], rank=rank,
+        world_size=spec["world"],
+        timeout=datetime.timedelta(seconds=DP_COLLECTIVE_S))
+    try:
+        torch.save(sp_part_a(rank, spec, dev), SP_DIR / f"a{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_spawn(spec: dict) -> list:
+    """Run ``spec["world"]`` ranks of ``sp_rank`` (``launch/ranks.py``:
+    spawned, joined by SP_JOIN_S, what is left killed; a rank that failed
+    or hung fails the phase).  Returns each rank's results."""
+    from repro_torch.launch.ranks import run_ranks
+    run_ranks(sp_rank, spec["world"], (spec,), timeout_s=SP_JOIN_S)
+    return [torch.load(SP_DIR / f"a{r}.pt", weights_only=False)
+            for r in range(spec["world"])]
+
+
+def sp_part_a(rank: int, spec: dict, dev) -> dict:
+    """In deterministic mode: the plain ``make_train_step`` (rank 0),
+    the parameters copied to the host, the model freed and rebuilt from
+    the same seed, placed by the rules on ``make_local_mesh(model=world)``
+    and stepped again over the same batches; then one more placed step
+    profiled."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    cfg, world = spec["cfg"], spec["world"]
+    ocfg = AdamWConfig(**spec["opt"])
+    mesh = make_local_mesh(model=world, device=spec["device"])
+    batches = [{k: v.to(dev) for k, v in b.items()}
+               for b in torch.load(SP_DIR / "batches.pt")]
+
+    def build():
+        return LM(cfg, device=dev,
+                  generator=torch.Generator(dev).manual_seed(SP_SEED))
+
+    out: dict = dict(mesh=tuple(mesh.shape))
+    with deterministic_mode():
+        if rank == 0:
+            reset_peak(dev)
+            lm = build()
+            state, (out["plain_losses"], out["plain_norms"]), \
+                out["plain_s"] = dp_steps(make_train_step(lm, ocfg),
+                                          init_train_state(lm), batches, dev)
+            out["plain_peak"] = peak_bytes(dev)
+            want = {n: p.detach().cpu() for n, p in state.params.items()}
+            del lm, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        reset_peak(dev)
+        lm = build()
+        out["params"] = sum(p.numel() for p in lm.parameters())
+
+        def place():
+            st = specs.state_shardings(lm, mesh, specs.arch_rules(cfg, mesh))
+            specs.place_params(lm, st.params)
+            of = specs.batch_shardings(cfg, mesh, SP_BATCH[0])
+            return [{k: distribute_tensor(v, mesh, of(v).placements)
+                     for k, v in b.items()} for b in batches]
+
+        placed, out["place_s"] = timed(place, dev)
+        out["sharded"] = sum(any(not p.is_replicate() for p in t.placements)
+                             for t in lm.parameters())
+        step = make_train_step(lm, ocfg)
+        state, (out["losses"], out["norms"]), out["placed_s"] = dp_steps(
+            step, init_train_state(lm), placed, dev)
+        out["peak"] = peak_bytes(dev)
+        full = {n: p.full_tensor() for n, p in state.params.items()}
+    if rank == 0:
+        same = {n: torch.equal(f.cpu(), want[n]) for n, f in full.items()}
+        out["bit_equal"] = all(same.values())
+        out["rel_l2"] = max([rel_l2(full[n], want[n])
+                             for n, ok in same.items() if not ok] or [0.0])
+        out["unequal"] = sorted(n for n, ok in same.items() if not ok)
+        del want
+    del full
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, placed[-1])
+
+    _, wall = timed(one_step, dev)
+    events = profiled_events(one_step, dev, cpu=False)
+    out["busy"] = busy_of(event_seconds(events), wall)
+    out["kernels"] = kernel_seconds_by_name(events)
+    return out
+
+
+def run_sharded(cat, queries, dev, power: str) -> dict:
+    """Phase 17: the sharded train step, ``make_train_step`` on parameters
+    and a batch placed by the sharding rules, one NCCL rank per card,
+    spawned, against the plain step from the same seed."""
+    from repro_torch.data import JoinCorpus, TokenBatcher
+    t0 = time.perf_counter()
+    cfgs = sp_configs()
+    cfg = cfgs["cfg"]
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    SP_DIR.mkdir(parents=True)
+    corpus = JoinCorpus.build(cat, queries["lastfm_A1"], vocab=256,
+                              device=dev)
+    batcher = TokenBatcher(JoinCorpus(corpus.gfjs, cfg.vocab,
+                                      corpus.tokens_per_row), *SP_BATCH,
+                           device=dev)
+    torch.save([{k: v.cpu() for k, v in batcher.next_batch().items()}
+                for _ in range(SP_STEPS)], SP_DIR / "batches.pt")
+    del corpus, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    world = torch.cuda.device_count()
+    print(f"  world {world}: one NCCL rank per card, mesh "
+          f"make_local_mesh(model={world})")
+    a = sp_spawn(dict(backend="nccl", device=dev.type, world=world,
+                      init=f"tcp://localhost:{free_port()}", cfg=cfg,
+                      opt=SP_OPT))[0]
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    check(a["sharded"] > 0, "the rules sharded no parameter")
+    if world == 1:
+        check(a["bit_equal"] or a["rel_l2"] <= TRAIN_TOL,
+              f"the placed step's parameters are {a['rel_l2']:.3g} (L2) "
+              f"from the plain step's (> {TRAIN_TOL}): {a['unequal'][:4]}")
+        check(not a["bit_equal"] or a["losses"] == a["plain_losses"],
+              f"losses {a['losses']} vs the plain {a['plain_losses']}")
+    else:
+        gap = max(abs(x - y) for x, y in zip(a["losses"],
+                                              a["plain_losses"]))
+        check(gap < SP_LOSS_GAP, f"the placed step's losses {a['losses']} "
+              f"vs the one-card step's {a['plain_losses']}")
+    check(all(np.isfinite(a["losses"] + a["norms"])),
+          f"a loss or grad norm is not finite: {a['losses']}")
+    print(f"  {cfg.name}: {cfg.num_layers} of {cfgs['depth']} layers, "
+          f"{a['params']} parameters (bf16), {SP_STEPS} steps of "
+          f"{SP_BATCH[0]} x {SP_BATCH[1]} join-fed tokens, AdamW lr "
+          f"{TRAIN_LR}, deterministic mode, mesh {a['mesh']} "
+          f"({a['sharded']} parameters sharded by arch_rules): placed "
+          f"parameters "
+          + ("bit-equal to make_train_step's" if a["bit_equal"]
+             else f"{a['rel_l2']:.3g} (L2) from make_train_step's, "
+             f"unequal: {a['unequal']}")
+          + f"; losses {a['losses']} (plain {a.get('plain_losses')})")
+    print(f"  ms a step (no gate): plain {ms_list(a['plain_s'])}, placed "
+          f"{ms_list(a['placed_s'])} (placement {a['place_s'] * 1e3:.1f} "
+          f"ms); one more placed step {fmt_busy(a['busy'])}; peak device "
+          f"bytes plain {a.get('plain_peak')}, placed {a['peak']} "
+          f"[{power}]")
+    print("      card time by kernel over that step (s): " + ", ".join(
+        f"{k} {v[0]:.6f} x{v[1]}" for k, v in a["kernels"].items()))
+    out = dict(a, world=world, power=power,
+               seconds=time.perf_counter() - t0)
+    print(f"  phase {out['seconds']:.1f}s [{power}]")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the per-shape measurements "
@@ -4167,7 +4379,7 @@ def main() -> int:
 
 
 def smoke(dev, lastfm_kw, out_path, header) -> list:
-    """Phases 3-16 on ``dev``; returns the kernels line's entries.  (The
+    """Phases 3-17 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
     from repro_torch.kernels.dense_message import dense_message
@@ -4431,6 +4643,22 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     print(f"data-parallel path: launches {data_parallel['launches']}, "
           f"numpy fallbacks=0")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    expand_many.launches = mul_segsum.launches = 0
+    run_boundaries.launches = 0
+    fb11 = fallbacks.value
+    print("the sharded train step (DTensor placements):")
+    sharded = run_sharded(cat, queries, dev, header["power"])
+    sharded["launches"] = {"expand_many": expand_many.launches,
+                           "mul_segsum": mul_segsum.launches,
+                           "run_boundaries": run_boundaries.launches}
+    check(sharded["launches"]["expand_many"] > 0,
+          "the sharded path launched no expand_many kernel")
+    check(fallbacks.value == fb11, "numpy fallbacks on the sharded path")
+    print(f"sharded path: launches {sharded['launches']}, numpy "
+          f"fallbacks=0")
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -4443,7 +4671,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             thin_launches=thin_launches, k_sweep=k_sweep, rates=rates,
             service=service, partitioned=partitioned, lm_serving=lm,
             moe_serving=moe, training=training, recurrent=recurrent,
-            media=media, data_parallel=data_parallel,
+            media=media, data_parallel=data_parallel, sharded=sharded,
             previous_ms={"/".join(map(str, k)): v
                          for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(

@@ -1,19 +1,22 @@
-"""Distribution layer: the hash-partitioned Graphical Join execution layer.
+"""Distribution layer: logical-axis sharding rules, activation-sharding
+context, and the hash-partitioned Graphical Join execution layer.
 
-:mod:`repro_torch.dist.partition` carries the GJ-side layer (DESIGN.md
-§15): hash-partitioning of encoded potentials on a planned partition
-variable, partition and potential histograms on one torch device or
-summed across the ranks of a mesh axis, and parallel desummarization of both monolithic and sharded summaries;
+Models declare *logical* axes ("embed", "heads", "ff", ...) per parameter
+(``repro_torch/models/layers.py::declare``); :mod:`repro_torch.dist.sharding`
+maps those to mesh specs and DTensor placements so model code never
+mentions mesh axes, and :mod:`repro_torch.dist.act_sharding` holds the
+activation-sharding context.  ``launch/specs.py`` places a model by them,
+and the sharded train step is ``train_step.make_train_step`` on the
+placed parameters.  :mod:`repro_torch.dist.partition` carries the GJ-side
+layer (DESIGN.md §15): hash-partitioning of encoded potentials on a
+planned partition variable, partition and potential histograms on one
+torch device or summed across the ranks of a mesh axis, and parallel
+desummarization of both monolithic and sharded summaries;
 :mod:`repro_torch.dist.actions` the process-pool shard executor and its
-wire format (DESIGN.md §17).
+wire format (DESIGN.md §17).  The explicit half of data parallelism, the
+data-parallel train step and its compressed all-reduce, is in
+:mod:`repro_torch.train.train_step`.
 
-The reference's package also carries the model-sharding rules
-(``repro/dist/sharding.py``, ``act_sharding.py``).  They are the placement
-half of data and model parallelism and are not ported yet (ROADMAP.md
-queue 1 item 6b: DTensor placements from logical axes and the sharded
-train step), so asking for their names raises :class:`AttributeError`
-naming that item.  The explicit half, the data-parallel train step and
-its compressed all-reduce, is in :mod:`repro_torch.train.train_step`.
 Submodule re-exports resolve lazily (PEP 562), as in the reference.
 """
 
@@ -30,16 +33,17 @@ _ACTIONS = {"ShardBuildAction", "ShardBuildResult", "DispatchOutcome",
             "run_shard_action", "shared_shard_executor",
             "shutdown_shared_executor"}
 
-__all__ = sorted(_PARTITION | _ACTIONS)
+__all__ = sorted(_SHARDING | _ACT | _PARTITION | _ACTIONS)
 
 
 def __getattr__(name):
     import importlib
-    if name in _SHARDING or name in _ACT:
-        raise AttributeError(
-            f"{name!r} belongs to the model-sharding rules, which are not "
-            "ported yet (ROADMAP.md queue 1 item 6b: DTensor placements "
-            "from logical axes and the sharded train step)")
+    if name in _SHARDING:
+        return getattr(importlib.import_module("repro_torch.dist.sharding"),
+                       name)
+    if name in _ACT:
+        return getattr(importlib.import_module(
+            "repro_torch.dist.act_sharding"), name)
     if name in _PARTITION:
         return getattr(importlib.import_module("repro_torch.dist.partition"),
                        name)

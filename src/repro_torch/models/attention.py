@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.dist.act_sharding import is_dtensor
 from repro_torch.models import flash
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, declare, dtype_of, rms_norm
@@ -64,6 +65,65 @@ def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     return m
 
 
+class _ToLocal(torch.autograd.Function):
+    """``DTensor.to_local()``, whose backward hands DTensor a contiguous
+    gradient.  Attention's gradients come back permuted, and on a mesh of
+    several ranks DTensor then views a gradient shard where a reshape
+    must copy ("view size is not compatible with input tensor's size and
+    stride", torch 2.13, the (2, 2) mesh of tests/test_torch_sharding.py).
+    The copy changes the layout in which later reductions (the qk-norm
+    scale's gradient) add, so a mesh of one rank, where DTensor's own
+    ``to_local`` works, keeps that and the plain step's bits."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements, ctx.shape = (t.device_mesh, t.placements,
+                                               tuple(t.shape))
+        local = t.to_local()
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(g.contiguous(), ctx.mesh, ctx.placements,
+                                  run_check=False, shape=ctx.shape,
+                                  stride=torch.empty(
+                                      ctx.shape, device="meta").stride())
+
+
+def per_shard_heads(fn, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)``: attention before the output projection, q
+    ``[B, Sq, H, hd]``, k / v ``[B, Sk, KV, d]`` -> ``[B, Sq, H*d]``.
+
+    For DTensors (a placed model) each rank runs ``fn`` on its own shards.
+    Attention is independent across batch rows and KV groups, so q, k and
+    v keep each mesh dim that shards all three on the batch dim, or all
+    three on the heads dim (then every rank holds whole KV groups); any
+    other mesh dim (one that shards the sequence, or head_dim, or q's
+    heads but not the keys') is gathered first.  No collective runs
+    inside.  DTensor's own propagation would flatten the batch and heads
+    dims of each product together, which torch 2.11 refuses when both are
+    sharded; and the masks and the online softmax's running sums stay
+    plain tensors on the shards."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    pl = []
+    for ps in zip(q.placements, k.placements, v.placements):
+        dim = next((d for d in (0, 2) if all(p.is_shard(d) for p in ps)),
+                   None)
+        pl.append(Replicate() if dim is None else Shard(dim))
+    local = _ToLocal.apply if mesh.size() > 1 else DTensor.to_local
+    ql, kl, vl = (local(t.redistribute(mesh, pl)) for t in (q, k, v))
+    out = fn(ql, kl, vl)
+    shape = (q.shape[0], q.shape[1], q.shape[2] * (out.shape[-1]
+                                                   // ql.shape[2]))
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                              stride=(shape[1] * shape[2], shape[2], 1))
+
+
 # ---------------------------------------------------------------------------
 # GQA
 # ---------------------------------------------------------------------------
@@ -82,13 +142,17 @@ class GQAttention(nn.Module):
         kvd = kv_dim or d
         dt = dtype_of(cfg.param_dtype)
         # wk / wv at the reference's stddev d ** -0.5, whatever kv_dim is
-        declare(self, "wq", (d, H, hd), dt, device, d ** -0.5)
-        declare(self, "wk", (kvd, KV, hd), dt, device, d ** -0.5)
-        declare(self, "wv", (kvd, KV, hd), dt, device, d ** -0.5)
-        declare(self, "wo", (H, hd, d), dt, device, (H * hd) ** -0.5)
+        declare(self, "wq", (d, H, hd), dt, ("embed", "heads", "head"), device,
+                d ** -0.5)
+        declare(self, "wk", (kvd, KV, hd), dt, ("embed", "kv_heads", "head"),
+                device, d ** -0.5)
+        declare(self, "wv", (kvd, KV, hd), dt, ("embed", "kv_heads", "head"),
+                device, d ** -0.5)
+        declare(self, "wo", (H, hd, d), dt, ("heads", "head", "embed"), device,
+                (H * hd) ** -0.5)
         if cfg.qk_norm:
-            declare(self, "q_norm", (hd,), dt, device, None)
-            declare(self, "k_norm", (hd,), dt, device, None)
+            declare(self, "q_norm", (hd,), dt, ("head",), device, None)
+            declare(self, "k_norm", (hd,), dt, ("head",), device, None)
 
     # -- projections --------------------------------------------------------
     @staticmethod
@@ -120,6 +184,15 @@ class GQAttention(nn.Module):
 
     def _attend(self, q, k, v, mask):
         """q: [B,Sq,H,hd]; k/v: [B,KV,Sk,hd]; mask: [Sq|1, Sk] or None."""
+        return self._out(self._heads(q, k, v, mask))
+
+    def _attend_seq(self, q, k, v, *, causal: bool, window: int):
+        """Full-sequence attention (k/v: [B,Sk,KV,hd])."""
+        return self._out(self._seq_heads(q, k, v, causal=causal,
+                                         window=window))
+
+    def _heads(self, q, k, v, mask):
+        """``_attend`` before the output projection: [B, Sq, H*hd]."""
         cfg = self.cfg
         B, Sq, H, hd = q.shape
         KV = k.shape[1]
@@ -143,10 +216,10 @@ class GQAttention(nn.Module):
         w = torch.softmax(scores, dim=-1).to(q.dtype)
         out = w.view(B, KV, G * Sq, -1) @ v               # [B,KV,G*Sq,hd]
         out = out.view(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4)
-        return self._out(out.reshape(B, Sq, H * hd))
+        return out.reshape(B, Sq, H * hd)
 
-    def _attend_seq(self, q, k, v, *, causal: bool, window: int):
-        """Full-sequence attention (k/v: [B,Sk,KV,hd]); long contexts go
+    def _seq_heads(self, q, k, v, *, causal: bool, window: int):
+        """``_attend_seq`` before the output projection; long contexts go
         through the online-softmax chunked path, as in the reference."""
         cfg = self.cfg
         B, Sq, H, hd = q.shape
@@ -159,10 +232,10 @@ class GQAttention(nn.Module):
             out = flash.online_attention(
                 q.reshape(B, Sq, KV, H // KV, hd), k, v, causal=causal,
                 window=window, softcap=cfg.attn_logit_softcap)
-            return self._out(out.reshape(B, Sq, H * hd))
+            return out.reshape(B, Sq, H * hd)
         pos = torch.arange(Sq, device=q.device)
         mask = attn_mask(pos, pos, causal=causal, window=window)
-        return self._attend(q, k.transpose(1, 2), v.transpose(1, 2), mask)
+        return self._heads(q, k.transpose(1, 2), v.transpose(1, 2), mask)
 
     # -- entry points --------------------------------------------------------
     def forward(self, x, positions, *, window: int = 0,
@@ -171,10 +244,14 @@ class GQAttention(nn.Module):
         attention to it: no rope, no mask, no chunking."""
         q, k, v = self._qkv(x, positions, kv_src)
         if kv_src is not None:
-            return self._attend(q, k.transpose(1, 2), v.transpose(1, 2),
-                                None)
-        return self._attend_seq(q, k, v, causal=self.cfg.causal,
-                                window=window)
+            def heads(q, k, v):
+                return self._heads(q, k.transpose(1, 2), v.transpose(1, 2),
+                                   None)
+        else:
+            def heads(q, k, v):
+                return self._seq_heads(q, k, v, causal=self.cfg.causal,
+                                       window=window)
+        return self._out(per_shard_heads(heads, q, k, v))
 
     def init_cache(self, batch: int, s_max: int) -> KVCache:
         cfg = self.cfg
@@ -232,19 +309,23 @@ class MLAttention(nn.Module):
         dt = dtype_of(cfg.param_dtype)
         qdim = m.nope_head_dim + m.rope_head_dim
         if m.q_lora_rank:
-            declare(self, "wq_a", (d, m.q_lora_rank), dt, device, d ** -0.5)
-            declare(self, "q_norm", (m.q_lora_rank,), dt, device, None)
-            declare(self, "wq_b", (m.q_lora_rank, H, qdim), dt, device,
-                    d ** -0.5)
+            declare(self, "wq_a", (d, m.q_lora_rank), dt, ("embed", None),
+                    device, d ** -0.5)
+            declare(self, "q_norm", (m.q_lora_rank,), dt, (None,), device,
+                    None)
+            declare(self, "wq_b", (m.q_lora_rank, H, qdim), dt,
+                    (None, "heads", "head"), device, d ** -0.5)
         else:
-            declare(self, "wq", (d, H, qdim), dt, device, d ** -0.5)
+            declare(self, "wq", (d, H, qdim), dt, ("embed", "heads", "head"),
+                    device, d ** -0.5)
         declare(self, "wkv_a", (d, m.kv_lora_rank + m.rope_head_dim), dt,
-                device, d ** -0.5)
-        declare(self, "kv_norm", (m.kv_lora_rank,), dt, device, None)
+                ("embed", None), device, d ** -0.5)
+        declare(self, "kv_norm", (m.kv_lora_rank,), dt, (None,), device, None)
         declare(self, "wkv_b", (m.kv_lora_rank, H,
-                                m.nope_head_dim + m.v_head_dim), dt, device,
-                d ** -0.5)
-        declare(self, "wo", (H, m.v_head_dim, d), dt, device,
+                                m.nope_head_dim + m.v_head_dim), dt,
+                (None, "heads", "head"), device, d ** -0.5)
+        declare(self, "wo", (H, m.v_head_dim, d), dt,
+                ("heads", "head", "embed"), device,
                 (H * m.v_head_dim) ** -0.5)
 
     def _q(self, x):

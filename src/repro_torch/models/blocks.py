@@ -45,9 +45,11 @@ class MLP(nn.Module):
         ff = d_ff or cfg.d_ff
         dt = dtype_of(cfg.param_dtype)
         if cfg.gated_mlp:
-            declare(self, "w_gate", (d, ff), dt, device, d ** -0.5)
-        declare(self, "w_up", (d, ff), dt, device, d ** -0.5)
-        declare(self, "w_down", (ff, d), dt, device, ff ** -0.5)
+            declare(self, "w_gate", (d, ff), dt, ("embed", "ff"), device,
+                    d ** -0.5)
+        declare(self, "w_up", (d, ff), dt, ("embed", "ff"), device, d ** -0.5)
+        declare(self, "w_down", (ff, d), dt, ("ff", "embed"), device,
+                ff ** -0.5)
         self.act = activation_fn(cfg.activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -79,8 +81,8 @@ class TransformerBlock(nn.Module):
         self.cfg = cfg
         self.window = window
         dt = dtype_of(cfg.param_dtype)
-        declare(self, "ln1", (cfg.d_model,), dt, device, None)
-        declare(self, "ln2", (cfg.d_model,), dt, device, None)
+        declare(self, "ln1", (cfg.d_model,), dt, ("embed",), device, None)
+        declare(self, "ln2", (cfg.d_model,), dt, ("embed",), device, None)
         if cfg.mla is not None and not cross:
             self.attn = MLAttention(cfg, device=device)
         else:
@@ -133,7 +135,7 @@ class Mamba2Layer(nn.Module):
         super().__init__()
         self.cfg = cfg
         declare(self, "ln", (cfg.d_model,), dtype_of(cfg.param_dtype),
-                device, None)
+                ("embed",), device, None)
         self.ssm = Mamba2Block(cfg, device=device)
 
     def forward(self, x, positions):
@@ -164,7 +166,7 @@ class XLSTMLayer(nn.Module):
         self.cfg = cfg
         self.prefix = "x" + kind
         declare(self, "ln", (cfg.d_model,), dtype_of(cfg.param_dtype),
-                device, None)
+                ("embed",), device, None)
         self.cell = (MLSTMBlock if kind == "m" else SLSTMBlock)(
             cfg, device=device)
 

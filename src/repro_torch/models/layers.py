@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.act_sharding import is_dtensor, replicated_like
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -29,20 +31,26 @@ ONES = "ones"        # ``declare``'s ``std`` for a parameter of ones
 
 
 def declare(module: nn.Module, name: str, shape: Sequence[int],
-            dtype: torch.dtype, device: torch.device,
-            std: Union[float, None, str]) -> None:
+            dtype: torch.dtype, axes: Sequence[Optional[str]],
+            device: torch.device, std: Union[float, None, str]) -> None:
     """Register an uninitialised parameter ``name`` on ``module``, without
-    gradients (``train_step.make_train_step`` turns them on).  ``std``
-    is its normal initialiser's stddev, ``None`` for zeros (the
-    reference's norm scales) or :data:`ONES` for ones (Mamba2's ``D``);
-    :func:`init_normal` reads it from the module's ``init_stds``, which
-    survives ``to_empty``."""
+    gradients (``train_step.make_train_step`` turns them on).  ``axes``
+    are its logical axes, one per dim (the reference's, which
+    ``repro_torch.dist.sharding`` maps to mesh axes), kept in the
+    module's ``param_axes``.  ``std`` is its normal initialiser's
+    stddev, ``None`` for zeros (the reference's norm scales) or
+    :data:`ONES` for ones (Mamba2's ``D``); :func:`init_normal` reads it
+    from the module's ``init_stds``, which survives ``to_empty``."""
+    axes = tuple(axes)
+    assert len(axes) == len(shape), (name, tuple(shape), axes)
     module.register_parameter(name, nn.Parameter(
         torch.empty(tuple(shape), dtype=dtype, device=device),
         requires_grad=False))
     if "init_stds" not in module.__dict__:
         module.init_stds = {}
+        module.param_axes = {}
     module.init_stds[name] = std
+    module.param_axes[name] = axes
 
 
 def copy_state(dst, src) -> None:
@@ -138,6 +146,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     freqs = rope_frequencies(hd, theta, x.device)               # [hd/2]
     angles = positions[..., :, None].float() * freqs    # [..., seq, hd/2]
+    angles = replicated_like(angles, x)
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -150,10 +159,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # losses
 # ---------------------------------------------------------------------------
 
+def _whole_last_dim(x: torch.Tensor) -> torch.Tensor:
+    """``x`` redistributed so that no mesh dim shards its last dim; a
+    plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    last = x.ndim - 1
+    if not any(p.is_shard(last) for p in x.placements):
+        return x
+    return x.redistribute(placements=[
+        Replicate() if p.is_shard(last) else p for p in x.placements])
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean CE over valid positions; logits in float32 for stability."""
-    logits = logits.float()
+    """Mean CE over valid positions; logits in float32 for stability.
+
+    Vocab-sharded logits (a DTensor with its last dim sharded: the placed
+    model's head) are first gathered whole on the ranks of that mesh dim,
+    as GSPMD is free to do; the label gather then runs on whole rows
+    (DTensor's sharded gather fails on them in torch 2.13)."""
+    logits = _whole_last_dim(logits.float())
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels.long()[..., None],
                               dim=-1)[..., 0]

@@ -51,6 +51,8 @@ from torch import nn
 import torch.nn.functional as F
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.dist.act_sharding import (constrain, replicated_like,
+                                           summed)
 from repro_torch.models.blocks import (Mamba2Layer, ScanStack,
                                       TransformerBlock, XLSTMLayer)
 from repro_torch.models.config import ModelConfig
@@ -215,18 +217,20 @@ class LM(nn.Module):
         self.vocab_padded = -(-cfg.vocab // 256) * 256
         if cfg.family == "audio":
             # frames in, an untied head out, whatever tie_embeddings says
-            declare(self, "frontend_proj", (FRAME_DIM, d), dt, dev,
-                    FRAME_DIM ** -0.5)
-            declare(self, "head", (d, self.vocab_padded), dt, dev, d ** -0.5)
+            declare(self, "frontend_proj", (FRAME_DIM, d), dt,
+                    (None, "embed"), dev, FRAME_DIM ** -0.5)
+            declare(self, "head", (d, self.vocab_padded), dt,
+                    ("embed", "vocab"), dev, d ** -0.5)
         else:
-            declare(self, "embed", (self.vocab_padded, d), dt, dev, 1.0)
+            declare(self, "embed", (self.vocab_padded, d), dt,
+                    ("vocab", "embed"), dev, 1.0)
             if not cfg.tie_embeddings:
-                declare(self, "head", (d, self.vocab_padded), dt, dev,
-                        d ** -0.5)
-        declare(self, "final_norm", (d,), dt, dev, None)
+                declare(self, "head", (d, self.vocab_padded), dt,
+                        ("embed", "vocab"), dev, d ** -0.5)
+        declare(self, "final_norm", (d,), dt, ("embed",), dev, None)
         if cfg.family == "vlm":
-            declare(self, "vision_norm", (cfg.vlm.vision_dim,), dt, dev,
-                    None)
+            declare(self, "vision_norm", (cfg.vlm.vision_dim,), dt, (None,),
+                    dev, None)
 
         L = cfg.num_layers
         # zamba2's shared attention block: one set of parameters
@@ -297,6 +301,17 @@ class LM(nn.Module):
                     out[f"{name}.{child}"] = sub.prefix
         return out
 
+    def logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Every parameter's logical axes, by state-dict name: the
+        reference's axes less the leading ``"layers"`` entries its stacks
+        add (the indices ``interop.lm_reference_name`` gives), since the
+        port keeps a module per layer."""
+        axes = {}
+        for path, mod in self.named_modules():
+            for name, ax in mod.__dict__.get("param_axes", {}).items():
+                axes[f"{path}.{name}" if path else name] = ax
+        return {name: axes[name] for name, _ in self.named_parameters()}
+
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
 
@@ -307,7 +322,7 @@ class LM(nn.Module):
         cdt = self.compute_dtype
         if self.cfg.family == "audio":
             return inputs.to(cdt) @ self.frontend_proj.to(cdt)
-        x = F.embedding(inputs.long(), self.embed).to(cdt)
+        x = summed(F.embedding(inputs.long(), self.embed)).to(cdt)
         return x * self.embed_scale
 
     def _vision(self, vision: Optional[torch.Tensor]
@@ -337,7 +352,8 @@ class LM(nn.Module):
         logits = (x @ w.to(x.dtype)).to(dtype_of(cfg.logits_dtype))
         if self.vocab_padded != cfg.vocab:
             real = torch.arange(self.vocab_padded, device=x.device) < cfg.vocab
-            logits = torch.where(real, logits, -1e30)
+            logits = torch.where(replicated_like(real, logits), logits,
+                                 -1e30)
         return logits
 
     def _kw(self, name: str, vision: Optional[torch.Tensor] = None
@@ -354,11 +370,11 @@ class LM(nn.Module):
     # -- entry points ---------------------------------------------------------
     def forward(self, inputs: torch.Tensor, *,
                 vision: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self._embed(inputs)
+        x = constrain(self._embed(inputs))
         positions = self._positions(x)
         v = self._vision(vision)
         for name, seg in self.segments.items():
-            x = seg(x, positions, **self._kw(name, v))
+            x = constrain(seg(x, positions, **self._kw(name, v)))
         return self._head(x)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -374,12 +390,13 @@ class LM(nn.Module):
     def prefill(self, inputs: torch.Tensor, s_max: int, *,
                 vision: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List]:
-        x = self._embed(inputs)
+        x = constrain(self._embed(inputs))
         positions = self._positions(x)
         v = self._vision(vision)
         caches = self.init_caches(x.shape[0], s_max)
         for (name, seg), cache in zip(self.segments.items(), caches):
             x, _ = seg.prefill(x, positions, cache, **self._kw(name, v))
+            x = constrain(x)
         return self._head(x[:, -1:]), caches
 
     def decode_step(self, tokens: torch.Tensor, caches: List, *,

@@ -53,15 +53,22 @@ class MoEBlock(nn.Module):
         dt = dtype_of(cfg.param_dtype)
         # the router is float32 whatever the parameters' dtype, as the
         # reference declares it
-        declare(self, "router", (d, E), torch.float32, device, d ** -0.5)
-        declare(self, "w_gate", (E, d, f), dt, device, d ** -0.5)
-        declare(self, "w_up", (E, d, f), dt, device, d ** -0.5)
-        declare(self, "w_down", (E, f, d), dt, device, f ** -0.5)
+        declare(self, "router", (d, E), torch.float32, ("embed", "experts"),
+                device, d ** -0.5)
+        declare(self, "w_gate", (E, d, f), dt, ("experts", "embed", "moe_ff"),
+                device, d ** -0.5)
+        declare(self, "w_up", (E, d, f), dt, ("experts", "embed", "moe_ff"),
+                device, d ** -0.5)
+        declare(self, "w_down", (E, f, d), dt, ("experts", "moe_ff", "embed"),
+                device, f ** -0.5)
         if m.shared_experts:
             ff = f * m.shared_experts
-            declare(self, "sh_gate", (d, ff), dt, device, d ** -0.5)
-            declare(self, "sh_up", (d, ff), dt, device, d ** -0.5)
-            declare(self, "sh_down", (ff, d), dt, device, ff ** -0.5)
+            declare(self, "sh_gate", (d, ff), dt, ("embed", "ff"), device,
+                    d ** -0.5)
+            declare(self, "sh_up", (d, ff), dt, ("embed", "ff"), device,
+                    d ** -0.5)
+            declare(self, "sh_down", (ff, d), dt, ("ff", "embed"), device,
+                    ff ** -0.5)
         self.act = activation_fn(cfg.activation)
 
     def route(self, xt: torch.Tensor):

@@ -51,14 +51,15 @@ class Mamba2Block(nn.Module):
         dt = dtype_of(cfg.param_dtype)
         f32 = torch.float32
         declare(self, "in_proj", (d, 2 * inner + 2 * self.N + self.heads),
-                dt, device, d ** -0.5)
-        declare(self, "conv_w", (s.conv_width, self.conv_dim), dt, device,
-                s.conv_width ** -0.5)
-        declare(self, "A_log", (self.heads,), f32, device, None)
-        declare(self, "D", (self.heads,), f32, device, ONES)
-        declare(self, "dt_bias", (self.heads,), f32, device, None)
-        declare(self, "norm", (inner,), dt, device, None)
-        declare(self, "out_proj", (inner, d), dt, device, inner ** -0.5)
+                dt, ("embed", "ff"), device, d ** -0.5)
+        declare(self, "conv_w", (s.conv_width, self.conv_dim), dt,
+                (None, "ff"), device, s.conv_width ** -0.5)
+        declare(self, "A_log", (self.heads,), f32, (None,), device, None)
+        declare(self, "D", (self.heads,), f32, (None,), device, ONES)
+        declare(self, "dt_bias", (self.heads,), f32, (None,), device, None)
+        declare(self, "norm", (inner,), dt, ("ff",), device, None)
+        declare(self, "out_proj", (inner, d), dt, ("ff", "embed"), device,
+                inner ** -0.5)
 
     # -- shared pieces --------------------------------------------------------
     def _project(self, x):

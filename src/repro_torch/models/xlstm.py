@@ -61,14 +61,19 @@ class MLSTMBlock(nn.Module):
         self.dv = inner // self.heads
         H = self.heads
         dt = dtype_of(cfg.param_dtype)
-        declare(self, "up", (d, 2 * inner), dt, device, d ** -0.5)
-        declare(self, "wq", (inner, H, self.dk), dt, device, d ** -0.5)
-        declare(self, "wk", (inner, H, self.dk), dt, device, d ** -0.5)
-        declare(self, "wv", (inner, H, self.dv), dt, device, d ** -0.5)
-        declare(self, "wif", (inner, 2 * H), torch.float32, device,
+        declare(self, "up", (d, 2 * inner), dt, ("embed", "ff"), device,
                 d ** -0.5)
-        declare(self, "norm", (inner,), dt, device, None)
-        declare(self, "down", (inner, d), dt, device, inner ** -0.5)
+        declare(self, "wq", (inner, H, self.dk), dt, ("ff", "heads", "head"),
+                device, d ** -0.5)
+        declare(self, "wk", (inner, H, self.dk), dt, ("ff", "heads", "head"),
+                device, d ** -0.5)
+        declare(self, "wv", (inner, H, self.dv), dt, ("ff", "heads", "head"),
+                device, d ** -0.5)
+        declare(self, "wif", (inner, 2 * H), torch.float32, ("ff", None),
+                device, d ** -0.5)
+        declare(self, "norm", (inner,), dt, ("ff",), device, None)
+        declare(self, "down", (inner, d), dt, ("ff", "embed"), device,
+                inner ** -0.5)
 
     def _proj(self, x):
         """q, k, v head-major [B, H, S, dk|dv]; the gates [B, H, S] f32."""
@@ -185,12 +190,14 @@ class SLSTMBlock(nn.Module):
         ff = -(-int(d * cfg.xlstm.slstm_proj_factor) // 128) * 128
         dt = dtype_of(cfg.param_dtype)
         f32 = torch.float32
-        declare(self, "wx", (d, 4 * d), f32, device, d ** -0.5)
-        declare(self, "r", (self.heads, self.hd, 4 * self.hd), f32, device,
-                self.hd ** -0.5)
-        declare(self, "norm", (d,), dt, device, None)
-        declare(self, "up", (d, 2 * ff), dt, device, d ** -0.5)
-        declare(self, "down", (ff, d), dt, device, ff ** -0.5)
+        declare(self, "wx", (d, 4 * d), f32, ("embed", "ff"), device,
+                d ** -0.5)
+        declare(self, "r", (self.heads, self.hd, 4 * self.hd), f32,
+                ("heads", "head", None), device, self.hd ** -0.5)
+        declare(self, "norm", (d,), dt, ("embed",), device, None)
+        declare(self, "up", (d, 2 * ff), dt, ("embed", "ff"), device,
+                d ** -0.5)
+        declare(self, "down", (ff, d), dt, ("ff", "embed"), device, ff ** -0.5)
 
     def init_state(self, batch: int) -> SLSTMState:
         def zeros():

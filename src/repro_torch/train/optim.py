@@ -6,6 +6,13 @@ int32 scalar step.  Parameters may be bf16: each update is computed in
 float32 and cast back, the mixed-precision arrangement whose footprint is
 2 + 4 + 4 bytes a parameter.
 
+Parameters may be DTensors (placed by ``launch.specs.place_params``):
+``init_state`` gives their moments the same placements, a gradient is
+redistributed to its parameter's placements first (a ``Partial`` sum over
+the data axis becomes the parameter's ``Replicate()``), and the update,
+elementwise, runs on each rank's local shards.  :func:`global_norm`
+counts each element once, not once per replica.
+
 Trees are flat ``{name: tensor}`` dicts.  :func:`apply_updates` writes the
 new parameters, ``m`` and ``v`` into the tensors it is given, in the
 reference's order of float32 operations, ``UPDATE_CHUNK`` elements at a
@@ -21,6 +28,8 @@ from dataclasses import dataclass
 from typing import Dict, Mapping, NamedTuple, Tuple, Union
 
 import torch
+
+from repro_torch.dist.act_sharding import is_dtensor
 
 Tree = Dict[str, torch.Tensor]
 
@@ -59,31 +68,94 @@ def schedule(cfg: AdamWConfig, step: Union[int, torch.Tensor]
 
 
 def init_state(params: Mapping[str, torch.Tensor]) -> AdamWState:
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Zero moments like each parameter (a DTensor's placements too) and
+    a zero step counter, a plain tensor: the reference's replicated
+    scalar."""
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32)
              for k, p in params.items()}
     dev = next(iter(params.values())).device if params else None
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev), zeros,
                       {k: z.clone() for k, z in zeros.items()})
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage, not a copy), or ``t``."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def _chunks(t: torch.Tensor):
-    flat = t.view(-1)
+    flat = _local(t).view(-1)
     for lo in range(0, flat.numel(), UPDATE_CHUNK):
         yield flat[lo:lo + UPDATE_CHUNK]
 
 
+def _shard_ranks(t: torch.Tensor) -> int:
+    """The number of ranks among which a DTensor's elements are split
+    (1 for a plain tensor or a replicated one)."""
+    if not is_dtensor(t):
+        return 1
+    mesh = t.device_mesh
+    n = 1
+    for i, p in enumerate(t.placements):
+        if not p.is_replicate():
+            n *= mesh.size(i)
+    return n
+
+
+def _sum_over_shards(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``s``, this rank's part of a sum over ``like``'s local shard,
+    summed over the mesh dims that shard ``like`` and not over those that
+    replicate it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    part = [Replicate() if p.is_replicate() else Partial()
+            for p in like.placements]
+    return DTensor.from_local(s, like.device_mesh, part,
+                              run_check=False).full_tensor()
+
+
 @torch.no_grad()
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the float32 sum of squares over every leaf."""
+    """sqrt of the float32 sum of squares over every leaf.  A leaf split
+    among several ranks adds the sum over its ranks' shards; any other
+    adds its own chunks, in the same order as a plain tensor's."""
     total = None
     for leaf in tree.values():
+        split = _shard_ranks(leaf) > 1
+        part = None
         for c in _chunks(leaf):
             c = c.float()
             s = (c * c).sum()
+            if split:
+                part = s if part is None else part + s
+            else:
+                total = s if total is None else total + s
+        if split:
+            s = _sum_over_shards(
+                part if part is not None
+                else torch.zeros((), dtype=torch.float32,
+                                 device=_local(leaf).device), leaf)
             total = s if total is None else total + s
     if total is None:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(total)
+
+
+def _placed_like(t: torch.Tensor, p: torch.Tensor, what: str
+                 ) -> torch.Tensor:
+    """``t`` with parameter ``p``'s placements: a gradient is
+    redistributed (a ``Partial`` sum reduced); a moment must already
+    have them."""
+    if not is_dtensor(p):
+        return t
+    if not is_dtensor(t):
+        raise TypeError(f"the {what} of a DTensor parameter is a plain "
+                        f"tensor")
+    if tuple(t.placements) == tuple(p.placements):
+        return t
+    if what != "gradient":
+        raise ValueError(f"the {what}'s placements {t.placements} differ "
+                         f"from its parameter's {p.placements}")
+    return t.redistribute(p.device_mesh, p.placements)
 
 
 @torch.no_grad()
@@ -96,6 +168,11 @@ def apply_updates(cfg: AdamWConfig, params: Tree, grads: Mapping[str,
     step = state.step + 1
     lr = schedule(cfg, step)
 
+    grads = {k: _placed_like(g, params[k], "gradient")
+             for k, g in grads.items()}
+    for k, p in params.items():
+        _placed_like(state.m[k], p, "first moment")
+        _placed_like(state.v[k], p, "second moment")
     gnorm = global_norm(grads)
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),

@@ -15,6 +15,14 @@ here every rank of a ``torch.distributed`` world runs the step on its own
 rows, and the axis's collectives are explicit ``dist.all_reduce`` calls
 over that axis's process group (NCCL on the card, gloo on the CPU, as the
 caller initialised it).  Both raise without an initialised process group.
+
+The reference's GSPMD mode is the same ``make_train_step`` jitted with
+``in_shardings``.  Here it is the same :func:`make_train_step`, made after
+``launch.specs.place_params`` has replaced the model's parameters by
+DTensors placed by the sharding rules, and given a batch placed by
+``launch.specs.batch_shardings``: DTensor's sharding propagation inserts
+the collectives, as GSPMD does, and the optimizer updates each rank's
+shards (``train.optim``).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist.act_sharding import is_dtensor
 from repro_torch.models.model import LM
 from repro_torch.train.optim import (AdamWConfig, AdamWState, Tree,
                                      apply_updates, init_state)
@@ -52,7 +61,10 @@ def _grads_fn(lm: LM):
         with torch.enable_grad():
             loss = lm.loss(batch)
             grads = torch.autograd.grad(loss, [p for _, p in named])
-        return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
+        loss = loss.detach()
+        if is_dtensor(loss):
+            loss = loss.full_tensor()
+        return loss, {n: g for (n, _), g in zip(named, grads)}
 
     return named, grads_of
 
@@ -96,8 +108,8 @@ def make_train_step(
                                  *x.shape[1:])
 
             micro = {k: split(v) for k, v in batch.items()}
-            gsum = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device) for n, p in named}
+            gsum = {n: torch.zeros_like(p, dtype=torch.float32)
+                    for n, p in named}
             lsum = torch.zeros((), dtype=torch.float32, device=lm.device)
             for i in range(microbatches):
                 l, g = grads_of({k: v[i] for k, v in micro.items()})

@@ -26,7 +26,7 @@ from repro.relational.synth import figure1 as ref_figure1
 
 import repro_torch
 import repro_torch.dist as dist
-from repro_torch.dist import actions
+from repro_torch.dist import act_sharding, actions, sharding
 from repro_torch.dist.actions import (FAULT_ENV, ProcessShardExecutor,
                                       ShardBuildAction, decode_action,
                                       decode_result, encode_action,
@@ -272,10 +272,11 @@ def test_dist_lazy_exports():
     assert dist.ProcessShardExecutor is ProcessShardExecutor
     assert callable(dist.choose_partition_fold)
     assert callable(dist.hash_partition_device)
-    with pytest.raises(AttributeError, match="ROADMAP"):
-        dist.ShardingRules
-    with pytest.raises(AttributeError, match="ROADMAP"):
-        dist.constrain
+    for name in ("ShardingRules", "DEFAULT_RULES", "SP_FSDP_RULES",
+                 "param_specs"):
+        assert getattr(dist, name) is getattr(sharding, name)
+    for name in ("constrain", "use"):
+        assert getattr(dist, name) is getattr(act_sharding, name)
     with pytest.raises(AttributeError):
         dist.nothing_here
 

@@ -1500,3 +1500,89 @@ def test_cross_rank_partition_histogram_on_the_card_equals_numpy(nccl_world,
     np.testing.assert_array_equal(
         hist.cpu().numpy(),
         np.bincount(hash_partition(codes, k, salt=3), minlength=k))
+
+
+# -- the sharded train step (smoke phase 17) -----------------------------------
+
+@pytest.fixture
+def nccl_mesh_2d(tmp_path):
+    """A one-rank NCCL world in this process, and its ``("data",
+    "model")`` mesh on the card (``make_local_mesh``)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    _card()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_local_mesh(model=1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("B,S", [(4, 32), (1, 4096)])
+def test_placed_step_at_world_1_is_bit_equal_to_the_plain_step(
+        nccl_mesh_2d, B, S, monkeypatch):
+    """Smoke phase 17 (a) at world 1, the qwen3_8b smoke model: three
+    ``make_train_step`` steps on parameters and batches placed by the
+    rules equal three plain steps from the same seed bit for bit, in
+    deterministic mode (S = 4,096 takes the online attention path)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import specs
+    from repro_torch.models.model import LM
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    dev = torch.device("cuda")
+    cfg = get_smoke("qwen3_8b")
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    batches = [_train_batch(cfg.vocab, dev, i, B=B, S=S) for i in range(3)]
+
+    def run(placed: bool):
+        lm = LM(cfg, device=dev,
+                generator=torch.Generator(dev).manual_seed(5))
+        bs = batches
+        if placed:
+            mesh = nccl_mesh_2d
+            st = specs.state_shardings(lm, mesh, specs.arch_rules(cfg, mesh))
+            specs.place_params(lm, st.params)
+            of = specs.batch_shardings(cfg, mesh, B)
+            bs = [{k: distribute_tensor(v, mesh, of(v).placements)
+                   for k, v in b.items()} for b in batches]
+        step, state = make_train_step(lm, ocfg), init_train_state(lm)
+        losses = []
+        for b in bs:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        full = {n: p.full_tensor() if placed else p
+                for n, p in state.params.items()}
+        return full, losses
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        (want, lw), (got, lg) = run(False), run(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert lg == lw
+    for n, p in want.items():
+        assert got[n].device.type == "cuda"
+        assert torch.equal(got[n], p), n
+
+
+def test_placements_and_constrain_on_cuda_tensors(nccl_mesh_2d):
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.dist import constrain, use
+    from repro_torch.dist.sharding import placements
+    mesh = nccl_mesh_2d
+    x = torch.arange(48, dtype=torch.float32, device="cuda").reshape(8, 6)
+    pl = placements(("data", "model"), mesh)
+    assert pl == (Shard(0), Shard(1))
+    xd = distribute_tensor(x, mesh, pl)
+    assert xd.to_local().device.type == "cuda"
+    assert torch.equal(xd.to_local(), x)
+    assert constrain(xd) is xd
+    with use(mesh, (None, "model")):
+        y = constrain(xd)
+    assert tuple(y.placements) == (Replicate(), Shard(1))
+    assert torch.equal(y.full_tensor(), x)

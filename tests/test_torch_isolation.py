@@ -11,13 +11,15 @@ greedily through a ``ServeEngine`` with features from a
 prompts through smoke zamba2, xlstm and Llama-3.2-Vision models, and
 frames through a smoke HuBERT's encode step), then
 trains it one ``Trainer`` step with a checkpoint (``ml_dtypes`` blocked
-too), and imports the mesh functions, the rank spawner and the
-data-parallel step; a source
+too), imports the mesh functions, the rank spawner and the
+data-parallel step, and takes a full-size model's parameter specs from
+the sharding rules and ``launch/specs.py``; a source
 scan finds no jax, ``repro`` or ``ml_dtypes`` import under
 ``src/repro_torch/`` (the serving, partitioning, model, data, training,
-checkpoint, mesh and data-parallel modules included) or in
-``chip_smoke.py``; and a ``cuda`` entry point (a ``cuda`` mesh among
-them) without a card raises instead of running on the CPU.
+checkpoint, mesh, data-parallel, sharding and placement modules
+included) or in ``chip_smoke.py``; and a ``cuda`` entry point (a
+``cuda`` mesh and a placement on one among them) without a card raises
+instead of running on the CPU.
 """
 
 import os
@@ -119,6 +121,18 @@ assert trainer.metrics_log[0]["step"] == 1
 from repro_torch.launch.mesh import make_local_mesh, make_mesh
 from repro_torch.launch.ranks import run_ranks
 from repro_torch.train import compressed_psum, make_dp_shard_map_step
+from types import SimpleNamespace
+from repro_torch.dist import DEFAULT_RULES, constrain, param_specs, use
+from repro_torch.launch import specs
+from repro_torch.configs import get_config
+flat = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(2, 4))
+full = get_config("qwen3_8b")
+axes = LM(full, device="meta").logical_axes()
+rules = specs.arch_rules(full, flat)
+assert param_specs(axes, flat, rules)["embed"] == ("model",)
+assert param_specs(axes, flat, rules) == param_specs(axes, flat,
+                                                     DEFAULT_RULES)
+assert constrain(batch["tokens"]) is batch["tokens"]
 assert not any(m in ("jax", "ml_dtypes")
                or m.startswith(("jax.", "repro.", "ml_dtypes."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -163,7 +177,8 @@ def test_source_imports_neither_jax_nor_reference():
             "train/train_step.py", "train/trainer.py",
             "checkpoint/__init__.py", "checkpoint/store.py",
             "launch/train.py", "launch/mesh.py",
-            "launch/ranks.py"} <= names
+            "launch/ranks.py", "launch/specs.py", "dist/sharding.py",
+            "dist/act_sharding.py"} <= names
     bad = {str(f.relative_to(ROOT)): _IMPORT.findall(f.read_text())
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -178,7 +193,7 @@ def test_source_imports_neither_jax_nor_reference():
                                    "hybrid_lm", "ssm_lm",
                                    "serve_engine", "join_corpus",
                                    "token_batcher", "trainer", "mesh",
-                                   "local_mesh"])
+                                   "local_mesh", "placement"])
 def test_cuda_without_a_card_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cat, q = figure1()
@@ -219,6 +234,18 @@ def test_cuda_without_a_card_raises(monkeypatch, entry):
             TrainerConfig()),
         "mesh": lambda: make_mesh((1,), ("data",)),
         "local_mesh": lambda: make_local_mesh(),
+        "placement": lambda: place_on_a_cuda_mesh(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+def place_on_a_cuda_mesh():
+    """``place_params`` onto a ``"cuda"`` mesh (a stand-in: building a
+    real one raises first) by the rules' placements."""
+    from types import SimpleNamespace
+    from repro_torch.launch.specs import Sharding, place_params
+    lm = LM(get_smoke("qwen3_8b"), device="cpu")
+    mesh = SimpleNamespace(device_type="cuda", mesh_dim_names=("data",))
+    place_params(lm, {n: Sharding(mesh, (), ())
+                      for n, _ in lm.named_parameters()})
