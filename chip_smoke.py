@@ -215,7 +215,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    world: DTensor's all-gather, the functional collective, crashes on
    gloo with CUDA tensors in torch 2.11; tests/test_torch_sharding.py
    runs a (2, 2) mesh on the CPU);
-18. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+18. every family's cells on DTensor placements, at world 1 on the (1, 1)
+   mesh of a one-rank NCCL group in the smoke's own process, each placed
+   with ``launch/specs.py``'s ``place_cell`` (as the dry run places its
+   cells) against the plain path from the same seed, in deterministic
+   mode: (a) granite-moe-1b-a400m at full size, three steps of phase 13's
+   8 x 1,024 join-fed tokens, parameters and losses bit-equal, ms a step
+   beside ``train_bounds``, the busy share and peak bytes; (b) zamba2 and
+   xLSTM at phase 14's width and depths (7, 3), two steps each of
+   ``PC_REC_BATCH``, bit-equal; (c) Qwen3-8B and granite-moe at full size
+   serving a 4 x 3,072 join-fed prefill and 16 greedy tokens on placed
+   parameters and placed caches: tokens equal to the plain run's, logits
+   bit-equal (or within phase 11's 1e-3 x max|logits|), prefill s and
+   decode ms a step beside the plain run's and ``lm_bounds``; (d) phase
+   17's Qwen3-8B cell and (a)'s granite cell through the dry run's
+   machinery on meta (``launch/dryrun.py``: a fake one-rank world, the op
+   counter), their FLOPs held to ``train_bounds``' operations moved to
+   what the port runs: the whole score square, remat's recompute without
+   the dense down projection, and the MoE padding (``PC_FLOPS_TOL``),
+   their per-device argument bytes equal to the card's placed state and
+   batch, and their roofline terms at the H100's peaks beside the card's
+   ms a step;
+19. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Kernel launch counts are zeroed just before phase 4 and read just after
 phase 5 (``expand_many``: the main path), zeroed again just before phase 6
@@ -231,7 +252,8 @@ same three: the moe serving path's), around phase 13
 phase 15 (the same three: the vlm and audio families'), around phase
 16 (``expand_many``: the data-parallel path's corpus build and column;
 the ranks launch none of the port's kernels) and around phase 17
-(``expand_many``: the sharded path's corpus build).  ``--out``
+(``expand_many``: the sharded path's corpus build) and around phase 18
+(the same).  ``--out``
 writes the per-shape measurements as JSON.
 """
 
@@ -4215,7 +4237,7 @@ def sp_part_a(rank: int, spec: dict, dev) -> dict:
     and stepped again over the same batches; then one more placed step
     profiled."""
     from torch.distributed.tensor import distribute_tensor
-    from repro_torch.launch import specs
+    from repro_torch.launch import dryrun, specs
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.model import LM
     from repro_torch.train import (AdamWConfig, init_train_state,
@@ -4258,8 +4280,11 @@ def sp_part_a(rank: int, spec: dict, dev) -> dict:
         out["sharded"] = sum(any(not p.is_replicate() for p in t.placements)
                              for t in lm.parameters())
         step = make_train_step(lm, ocfg)
+        state = init_train_state(lm)
+        # this rank's bytes of the state and a batch (phase 18 (d))
+        out["argument_bytes"] = dryrun.local_bytes((state, placed[0]))
         state, (out["losses"], out["norms"]), out["placed_s"] = dp_steps(
-            step, init_train_state(lm), placed, dev)
+            step, state, placed, dev)
         out["peak"] = peak_bytes(dev)
         full = {n: p.full_tensor() for n, p in state.params.items()}
     if rank == 0:
@@ -4347,6 +4372,397 @@ def run_sharded(cat, queries, dev, power: str) -> dict:
     return out
 
 
+# -- phase 18: every cell placed, and the dry run -----------------------------
+
+PC_SEED = 18
+PC_TRAIN_ARCH = "granite_moe_1b_a400m"       # (a): phase 13's full model
+PC_TRAIN_BATCH = TRAIN_FULL[PC_TRAIN_ARCH][1:]   # 8 x 1,024 join-fed tokens
+PC_TRAIN_STEPS = 3
+PC_REC_STEPS = 2
+# (b): 32 x 512, the most rows (by powers of two) that keep (b) under
+# 30 s on the H100 (24.4-26.9 s on an H100 80GB HBM3 at 700 W; 64 x 512
+# ran past 30 s): the sLSTM loop over 512 positions costs launches more
+# than rows; 1,024 positions would double the loop
+PC_REC_BATCH = (32, 512)
+PC_SERVE_ARCHS = ("qwen3_8b", "granite_moe_1b_a400m")
+PC_SERVE = (4, 3072)                 # (c): requests x prompt tokens
+PC_NEW = 16                          # (c): greedy tokens a request
+PC_LOGIT_TOL = LM_WIDTH_TOL          # (c) if not bit-equal: x max|logits|
+# (d): the dry run's FLOPs against train_bounds' operations, once the
+# bound's count is moved to what the port runs (``pc_expected_flops``):
+# the whole S x S score square of each attention where the bound counts
+# the causal half (every block is computed, forward, backward and
+# recompute); remat's recompute of the blocks (``remat_ops``), the MoE
+# router's included, but not the dense MLP's down projection, which
+# torch.utils.checkpoint's non-reentrant recompute skips (nothing after
+# it saves its output: the recompute stops at the last tensor the
+# backward needs; the MoE combine saves the experts' outputs, so they
+# are recomputed); and the MoE capacity's padded slots
+# (``capacity_factor``).  Then the two are the same count (a CPU dry run
+# of both cells agrees to the FLOP); the tolerance is float64 rounding of
+# the padded slots' share.
+PC_FLOPS_TOL = 1e-9
+
+
+def pc_configs() -> dict:
+    """Phase 18's configurations: (a) granite-moe at full size; (b)
+    zamba2 and xLSTM at phase 14's full width and reduced depth, float32;
+    (c) Qwen3-8B at full size and granite-moe at full size, bf16; (d)
+    phase 17's Qwen3-8B cell and (a)'s."""
+    from repro_torch.configs import get_config
+    train, rec = train_configs(), recurrent_configs()
+    return dict(a=train["full"][PC_TRAIN_ARCH],
+                b={a: rec[a]["width"] for a in REC_ARCHS},
+                c={a: get_config(a) for a in PC_SERVE_ARCHS},
+                d={SP_ARCH: (sp_configs()["cfg"], SP_BATCH),
+                   PC_TRAIN_ARCH: (train["full"][PC_TRAIN_ARCH],
+                                   PC_TRAIN_BATCH)})
+
+
+def pc_batches(corpus, cfg, B: int, S: int, n: int, dev) -> list:
+    from repro_torch.data import JoinCorpus, TokenBatcher
+    batcher = TokenBatcher(JoinCorpus(corpus.gfjs, cfg.vocab,
+                                      corpus.tokens_per_row), B, S,
+                           device=dev)
+    return [batcher.next_batch() for _ in range(n)]
+
+
+def pc_train(cfg, batches, dev, mesh, *, profiled: bool) -> dict:
+    """In deterministic mode: the plain ``make_train_step`` over
+    ``batches``, the parameters copied to the host, the model freed and
+    rebuilt from the same seed, placed on ``mesh`` by ``arch_rules``
+    (``specs.place_cell``, as the dry run places its cells) and stepped
+    over the same batches placed; with ``profiled`` one more placed step
+    under the profiler."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models.model import LM
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    B, S = batches[0]["tokens"].shape
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+
+    def build():
+        return LM(cfg, device=dev,
+                  generator=torch.Generator(dev).manual_seed(PC_SEED))
+
+    out: dict = dict(batch=B, seq=S, layers=cfg.num_layers)
+    with deterministic_mode():
+        reset_peak(dev)
+        lm = build()
+        state, (out["plain_losses"], _), out["plain_s"] = dp_steps(
+            make_train_step(lm, ocfg), init_train_state(lm), batches, dev)
+        out["plain_peak"] = peak_bytes(dev)
+        want = {n: p.detach().cpu() for n, p in state.params.items()}
+        del lm, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_peak(dev)
+        lm = build()
+        sh = specs.cell_shardings(lm, "train", mesh, B, S,
+                                  specs.arch_rules(cfg, mesh))
+        (step, (state, _)), out["place_s"] = timed(
+            lambda: specs.place_cell(lm, "train", (None, batches[0]), sh,
+                                     seq=S, opt_cfg=ocfg), dev)
+        placed = [{k: distribute_tensor(v, mesh, sh[1][k].placements)
+                   for k, v in b.items()} for b in batches]
+        out["argument_bytes"] = dryrun.local_bytes((state, placed[0]))
+        out["sharded"] = sum(any(not p.is_replicate() for p in t.placements)
+                             for t in lm.parameters())
+        state, (out["losses"], norms), out["placed_s"] = dp_steps(
+            step, state, placed, dev)
+        out["peak"] = peak_bytes(dev)
+        full = {n: p.full_tensor() for n, p in state.params.items()}
+    same = {n: torch.equal(f.cpu(), want[n]) for n, f in full.items()}
+    out["bit_equal"] = all(same.values()) and \
+        out["losses"] == out["plain_losses"]
+    out["unequal"] = sorted(n for n, ok in same.items() if not ok)
+    out["bound"] = train_bounds(lm, B, S)
+    check(all(np.isfinite(out["losses"] + norms)),
+          f"{cfg.name}: a placed loss or grad norm is not finite")
+    del want, full
+    if profiled:
+        def one_step():
+            nonlocal state
+            state, _ = step(state, placed[-1])
+
+        _, wall = timed(one_step, dev)
+        events = profiled_events(one_step, dev, cpu=False)
+        out["busy"] = busy_of(event_seconds(events), wall)
+    del lm, state, placed, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pc_greedy(lm, tokens, s_max: int, new: int, dev) -> tuple:
+    """Greedy prefill + ``new - 1`` decode steps on the LM's own API (as
+    ``ServeEngine`` drives it), placed or plain: (tokens [B, new], each
+    step's last-position logits [new, B, V] on the card, prefill s,
+    decode s a step)."""
+    from repro_torch.dist.act_sharding import is_dtensor
+
+    def full(t):
+        return t.full_tensor() if is_dtensor(t) else t
+
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(tokens, s_max)
+        last = [full(logits[:, -1])]
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        sync(dev)
+        t1 = time.perf_counter()
+        toks = [full(tok)]
+        for _ in range(new - 1):
+            logits, caches = lm.decode_step(tok, caches)
+            last.append(full(logits[:, -1]))
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            toks.append(full(tok))
+        sync(dev)
+        t2 = time.perf_counter()
+    placed = all(is_dtensor(t) for t in _cache_leaves(caches))
+    return (torch.cat(toks, 1).cpu().numpy(), torch.stack(last),
+            t1 - t0, (t2 - t1) / (new - 1), placed)
+
+
+def _cache_leaves(caches) -> list:
+    from repro_torch.launch.specs import map_caches
+    leaves: list = []
+    map_caches(lambda t, k: leaves.append(t), caches)
+    return leaves
+
+
+def pc_serve(cfg, tokens, dev, mesh) -> dict:
+    """(c) one model from one seed, plain and then placed on ``mesh``
+    (its parameters by ``arch_rules``, its caches by ``cache_shardings``
+    as ``place_params`` arranges): greedy tokens, logits, times."""
+    from repro_torch.launch import specs
+    from repro_torch.models.model import LM
+    B, S = tokens.shape
+    s_max = S + PC_NEW
+
+    def build():
+        return LM(cfg, device=dev,
+                  generator=torch.Generator(dev).manual_seed(PC_SEED))
+
+    lm = build()
+    toks, want, pre, dec, _ = pc_greedy(lm, tokens, s_max, PC_NEW, dev)
+    bound = lm_bounds(lm, B, S, PC_NEW)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = build()
+    sh = specs.cell_shardings(lm, "prefill", mesh, B, s_max,
+                              specs.arch_rules(cfg, mesh))
+    _, (_, placed_b) = specs.place_cell(lm, "prefill", (None, {
+        "tokens": tokens}), sh, seq=s_max)
+    ptoks, got, ppre, pdec, caches_placed = pc_greedy(
+        lm, placed_b["tokens"], s_max, PC_NEW, dev)
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    out = dict(tokens_equal=bool(np.array_equal(toks, ptoks)),
+               bit_equal=bool(torch.equal(got, want)), rel_err=err,
+               caches_placed=caches_placed, prefill_s=pre,
+               decode_s=dec, placed_prefill_s=ppre, placed_decode_s=pdec,
+               bound=bound, batch=B, seq=S)
+    del lm, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pc_dry(cfg, B: int, S: int) -> dict:
+    """(d) one train cell of ``cfg`` through the dry run's machinery
+    (``dryrun.measure``: a fake world of one rank, the (1, 1) mesh, meta
+    tensors, the op counter): its result and roofline terms."""
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_local_mesh
+    with dryrun.fake_world(1):
+        mesh = make_local_mesh(model=1, device="cpu")
+        res, _ = dryrun.measure(cfg, "train", B, S, mesh)
+    res["terms"] = dict(compute=res["flops"] / roofline.PEAK_FLOPS,
+                        memory=res["bytes_accessed"] / roofline.HBM_BW,
+                        collective=res["collectives"]["total"]
+                        / roofline.LINK_BW)
+    return res
+
+
+def pc_expected_flops(cfg, bound: dict, B: int, S: int) -> float:
+    """train_bounds' operations moved to what the port runs (PC_FLOPS_TOL's
+    list)."""
+    from repro_torch.models.moe import capacity
+    H, hd, L, d, T = (cfg.num_heads, cfg.head_dim_, cfg.num_layers,
+                      cfg.d_model, B * S)
+    remat = cfg.remat != "none"
+    causal = 4 * H * hd * (S * (S + 1) // 2) * B * L     # the bound's
+    square = 4 * H * hd * S * S * B * L                  # the port's
+    # forward, backward (twice the forward) and, with remat, the recompute
+    out = (bound["ops"] - 3 * causal + (4 if remat else 3) * square
+           + bound["f32_ops"])
+    m = cfg.moe
+    moe_layers = 0 if m is None else L - m.first_dense_layers
+    if remat:
+        out += bound["remat_ops"] - causal
+        out -= 2 * d * cfg.d_ff * T * (L - moe_layers)   # dense down proj
+        if m is not None:                                 # the router
+            out += 2 * d * m.num_experts * T * moe_layers
+    if m is not None:
+        expert = 3 * d * m.d_ff_expert * m.experts_per_token \
+            * moe_layers * T
+        rows = capacity(T, m.experts_per_token, m.num_experts,
+                        m.capacity_factor) * m.num_experts
+        per_slot = (6 + (2 if remat else 0)) * expert
+        out += per_slot * (rows / (T * m.experts_per_token) - 1)
+    return float(out)
+
+
+def run_placed_cells(cat, queries, sharded: dict, dev, power: str) -> dict:
+    """Phase 18: every family's cells on DTensor placements on the card,
+    at world 1 on the (1, 1) mesh, against the plain path from the same
+    seed, and the dry run of the card's own cells."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.data import JoinCorpus
+    from repro_torch.launch.mesh import make_local_mesh
+    t0 = time.perf_counter()
+    cfgs = pc_configs()
+    corpus = JoinCorpus.build(cat, queries["lastfm_A1"], vocab=256,
+                              device=dev)
+    out: dict = dict(power=power)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DP_COLLECTIVE_S))
+    try:
+        mesh = make_local_mesh(model=1, device=dev.type)
+        # (a) granite-moe at full size
+        cfg = cfgs["a"]
+        t = time.perf_counter()
+        a = pc_train(cfg, pc_batches(corpus, cfg, *PC_TRAIN_BATCH,
+                                     PC_TRAIN_STEPS, dev), dev, mesh,
+                     profiled=True)
+        a["seconds"] = time.perf_counter() - t
+        check(a["sharded"] > 0 or mesh.size() == 1,
+              "(a) the rules sharded no parameter")
+        check(a["bit_equal"], f"(a) {cfg.name}: placed steps differ from "
+              f"the plain steps: losses {a['losses']} vs "
+              f"{a['plain_losses']}, unequal {a['unequal'][:4]}")
+        b = a["bound"]
+        print(f"  (a) {cfg.name}: {cfg.num_layers} layers, "
+              f"{b['params']} parameters (bf16), {PC_TRAIN_STEPS} steps of "
+              f"{a['batch']} x {a['seq']} join-fed tokens, deterministic "
+              f"mode, mesh {tuple(mesh.shape)} by arch_rules "
+              f"(specs.place_cell): parameters and losses bit-equal to "
+              f"make_train_step's ({a['losses']}); ms a step plain "
+              f"{ms_list(a['plain_s'])}, placed {ms_list(a['placed_s'])} "
+              f"(bound {b['step_s'] * 1e3:.3f} ms, {b['bound_by']}); "
+              f"placement {a['place_s'] * 1e3:.1f} ms; one more placed "
+              f"step {fmt_busy(a['busy'])}; peak device bytes plain "
+              f"{a['plain_peak']}, placed {a['peak']} "
+              f"({a['seconds']:.1f}s) [{power}]")
+        out["a"] = a
+        # (b) zamba2 and xLSTM at phase 14's depths
+        out["b"] = {}
+        t = time.perf_counter()
+        for arch, cfg in cfgs["b"].items():
+            r = pc_train(cfg, pc_batches(corpus, cfg, *PC_REC_BATCH,
+                                         PC_REC_STEPS, dev), dev, mesh,
+                         profiled=False)
+            check(r["bit_equal"], f"(b) {cfg.name}: placed steps differ "
+                  f"from the plain steps: {r['losses']} vs "
+                  f"{r['plain_losses']}, unequal {r['unequal'][:4]}")
+            print(f"  (b) {cfg.name} float32, {cfg.num_layers} layers, "
+                  f"{PC_REC_STEPS} steps of {r['batch']} x {r['seq']}: "
+                  f"placed parameters and losses bit-equal to plain "
+                  f"({r['losses']}); ms a step plain "
+                  f"{ms_list(r['plain_s'])}, placed "
+                  f"{ms_list(r['placed_s'])} (bound "
+                  f"{r['bound']['step_s'] * 1e3:.3f} ms)")
+            out["b"][arch] = r
+        out["b_seconds"] = time.perf_counter() - t
+        print(f"  (b) {out['b_seconds']:.1f}s at {PC_REC_BATCH[0]} x "
+              f"{PC_REC_BATCH[1]}")
+        # (c) serving on placed parameters and caches
+        out["c"] = {}
+        for arch, cfg in cfgs["c"].items():
+            t = time.perf_counter()
+            tokens = pc_batches(corpus, cfg, *PC_SERVE, 1, dev)[0]["tokens"]
+            r = pc_serve(cfg, tokens, dev, mesh)
+            r["seconds"] = time.perf_counter() - t
+            check(r["tokens_equal"], f"(c) {cfg.name}: placed greedy tokens "
+                  f"differ from the plain run's")
+            check(r["caches_placed"], f"(c) {cfg.name}: a cache is plain")
+            check(r["bit_equal"] or r["rel_err"] <= PC_LOGIT_TOL,
+                  f"(c) {cfg.name}: logits {r['rel_err']:.3g} x max|logits| "
+                  f"from plain (> {PC_LOGIT_TOL})")
+            bd = r["bound"]
+            print(f"  (c) {cfg.name} bf16, {cfg.num_layers} layers: "
+                  f"{r['batch']} x {r['seq']} join-fed prefill and "
+                  f"{PC_NEW} greedy tokens on placed parameters and placed "
+                  f"caches: tokens equal to plain, logits "
+                  + ("bit-equal" if r["bit_equal"] else
+                     f"{r['rel_err']:.3g} x max|logits| from plain")
+                  + f"; prefill {r['placed_prefill_s']:.4f} s (plain "
+                  f"{r['prefill_s']:.4f}, bound {bd['prefill_s']:.4f}), "
+                  f"decode {r['placed_decode_s'] * 1e3:.3f} ms a step "
+                  f"(plain {r['decode_s'] * 1e3:.3f}, bound "
+                  f"{bd['decode_step_s'] * 1e3:.3f}) "
+                  f"({r['seconds']:.1f}s) [{power}]")
+            out["c"][arch] = r
+    finally:
+        dist.destroy_process_group()
+    del corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the dry run of the card's own cells, on meta
+    out["d"] = {}
+    measured = {SP_ARCH: (sharded.get("placed_s"),
+                          sharded.get("argument_bytes")),
+                PC_TRAIN_ARCH: (out["a"]["placed_s"],
+                                out["a"]["argument_bytes"])}
+    for arch, (cfg, (B, S)) in cfgs["d"].items():
+        t = time.perf_counter()
+        r = pc_dry(cfg, B, S)
+        r["seconds"] = time.perf_counter() - t
+        from repro_torch.models.model import LM
+        bound = train_bounds(LM(cfg, device="meta"), B, S)
+        want = pc_expected_flops(cfg, bound, B, S)
+        r["expected_flops"] = want
+        r["bound_ops"] = bound["ops"] + bound["f32_ops"]
+        gap = r["flops"] / want - 1
+        check(abs(gap) <= PC_FLOPS_TOL,
+              f"(d) {cfg.name}: the dry run's {r['flops']:.6g} FLOPs are "
+              f"{gap:+.3g} from the bound's count moved to what the port "
+              f"runs ({want:.6g})")
+        step_s, arg_bytes = measured[arch]
+        if arg_bytes is not None:
+            check(r["memory"]["argument_size_in_bytes"] == arg_bytes,
+                  f"(d) {cfg.name}: the dry run's argument bytes "
+                  f"{r['memory']['argument_size_in_bytes']} are not the "
+                  f"card's parameter, state and batch bytes {arg_bytes}")
+        ms = "not measured" if not step_s else \
+            f"{float(np.median(step_s[1:] or step_s)) * 1e3:.3f} ms"
+        terms = r["terms"]
+        print(f"  (d) {cfg.name} ({cfg.num_layers} layers, {B} x {S}) on "
+              f"meta, mesh (1, 1), {r['seconds']:.1f}s: FLOPs "
+              f"{r['flops']:.6g} (train_bounds' operations "
+              f"{r['bound_ops']:.6g}; moved to the whole score square, "
+              f"remat's recompute and the MoE padding {want:.6g}: "
+              f"{gap:+.3g}); argument "
+              f"bytes {r['memory']['argument_size_in_bytes']} (the card's "
+              f"parameters, state and batch: {arg_bytes}); roofline at "
+              f"H100 peaks: compute {terms['compute'] * 1e3:.3f} ms, "
+              f"memory {terms['memory'] * 1e3:.3f} ms (eager bytes "
+              f"{r['bytes_accessed']:.6g}), collective "
+              f"{terms['collective'] * 1e3:.3f} ms; the card's placed "
+              f"step: {ms} [{power}]")
+        out["d"][arch] = r
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase {out['seconds']:.1f}s [{power}]")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the per-shape measurements "
@@ -4379,7 +4795,7 @@ def main() -> int:
 
 
 def smoke(dev, lastfm_kw, out_path, header) -> list:
-    """Phases 3-17 on ``dev``; returns the kernels line's entries.  (The
+    """Phases 3-18 on ``dev``; returns the kernels line's entries.  (The
     measurements need the card; a CPU rehearsal at a small ``lastfm_kw``
     replaces ``cuda_ms`` and ``device_seconds``.)"""
     from repro_torch.kernels.dense_message import dense_message
@@ -4659,6 +5075,24 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
     print(f"sharded path: launches {sharded['launches']}, numpy "
           f"fallbacks=0")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    expand_many.launches = mul_segsum.launches = 0
+    run_boundaries.launches = 0
+    fb12 = fallbacks.value
+    print("every family's cells placed, and the dry run:")
+    placed_cells = run_placed_cells(cat, queries, sharded, dev,
+                                    header["power"])
+    placed_cells["launches"] = {"expand_many": expand_many.launches,
+                                "mul_segsum": mul_segsum.launches,
+                                "run_boundaries": run_boundaries.launches}
+    check(placed_cells["launches"]["expand_many"] > 0,
+          "the placed cells' path launched no expand_many kernel")
+    check(fallbacks.value == fb12,
+          "numpy fallbacks on the placed cells' path")
+    print(f"placed cells' path: launches {placed_cells['launches']}, numpy "
+          f"fallbacks=0")
+
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(dict(
@@ -4672,6 +5106,7 @@ def smoke(dev, lastfm_kw, out_path, header) -> list:
             service=service, partitioned=partitioned, lm_serving=lm,
             moe_serving=moe, training=training, recurrent=recurrent,
             media=media, data_parallel=data_parallel, sharded=sharded,
+            placed_cells=placed_cells,
             previous_ms={"/".join(map(str, k)): v
                          for k, v in PREVIOUS_MS.items()}), indent=1))
     kernels = [dict(

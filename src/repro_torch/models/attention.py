@@ -35,7 +35,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.dist.act_sharding import is_dtensor
+from repro_torch.dist.act_sharding import (is_dtensor, merged, replicated_like,
+                                           splittable, write_at)
 from repro_torch.models import flash
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, declare, dtype_of, rms_norm
@@ -158,8 +159,8 @@ class GQAttention(nn.Module):
     @staticmethod
     def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """einsum("bsd,dhk->bshk") as one matrix product."""
-        return (x @ w.reshape(w.shape[0], -1).to(x.dtype)).unflatten(
-            -1, w.shape[1:])
+        y = x @ merged(w, 1, -1).to(x.dtype)
+        return splittable(y, -1, w.shape[1]).unflatten(-1, w.shape[1:])
 
     def _qkv(self, x, positions, kv_src=None):
         """q from ``x``; k, v from ``kv_src`` (cross-attention: no rope)
@@ -179,17 +180,23 @@ class GQAttention(nn.Module):
 
     def _out(self, out: torch.Tensor) -> torch.Tensor:
         """einsum("bqhk,hkd->bqd") over [B, Sq, H*hd]."""
-        wo = self.wo
-        return out @ wo.reshape(-1, wo.shape[-1]).to(out.dtype)
+        return out @ merged(self.wo, 0, -2).to(out.dtype)
 
     def _attend(self, q, k, v, mask):
-        """q: [B,Sq,H,hd]; k/v: [B,KV,Sk,hd]; mask: [Sq|1, Sk] or None."""
-        return self._out(self._heads(q, k, v, mask))
+        """q: [B,Sq,H,hd]; k/v: [B,KV,Sk,hd] (the cache); mask: [Sq|1,
+        Sk] or None; on each rank's shards (``per_shard_heads``)."""
+        def heads(q, k, v):
+            return self._heads(q, k.transpose(1, 2), v.transpose(1, 2),
+                               mask)
+        return self._out(per_shard_heads(heads, q, k.transpose(1, 2),
+                                         v.transpose(1, 2)))
 
     def _attend_seq(self, q, k, v, *, causal: bool, window: int):
-        """Full-sequence attention (k/v: [B,Sk,KV,hd])."""
-        return self._out(self._seq_heads(q, k, v, causal=causal,
-                                         window=window))
+        """Full-sequence attention (k/v: [B,Sk,KV,hd]), on each rank's
+        shards."""
+        def heads(q, k, v):
+            return self._seq_heads(q, k, v, causal=causal, window=window)
+        return self._out(per_shard_heads(heads, q, k, v))
 
     def _heads(self, q, k, v, mask):
         """``_attend`` before the output projection: [B, Sq, H*hd]."""
@@ -244,14 +251,10 @@ class GQAttention(nn.Module):
         attention to it: no rope, no mask, no chunking."""
         q, k, v = self._qkv(x, positions, kv_src)
         if kv_src is not None:
-            def heads(q, k, v):
-                return self._heads(q, k.transpose(1, 2), v.transpose(1, 2),
-                                   None)
-        else:
-            def heads(q, k, v):
-                return self._seq_heads(q, k, v, causal=self.cfg.causal,
-                                       window=window)
-        return self._out(per_shard_heads(heads, q, k, v))
+            return self._attend(q, k.transpose(1, 2), v.transpose(1, 2),
+                                None)
+        return self._attend_seq(q, k, v, causal=self.cfg.causal,
+                                window=window)
 
     def init_cache(self, batch: int, s_max: int) -> KVCache:
         cfg = self.cfg
@@ -262,8 +265,8 @@ class GQAttention(nn.Module):
     def prefill(self, x, positions, cache: KVCache, *, window: int = 0):
         q, k, v = self._qkv(x, positions)
         S = x.shape[1]
-        cache.k[:, :, :S] = k.transpose(1, 2)
-        cache.v[:, :, :S] = v.transpose(1, 2)
+        write_at(cache.k, 2, 0, k.transpose(1, 2))
+        write_at(cache.v, 2, 0, v.transpose(1, 2))
         cache.pos = S
         out = self._attend_seq(q, k, v, causal=self.cfg.causal,
                                window=window)
@@ -278,8 +281,8 @@ class GQAttention(nn.Module):
         positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
                                device=x.device)
         q, k, v = self._qkv(x, positions)
-        cache.k[:, :, pos] = k[:, 0]
-        cache.v[:, :, pos] = v[:, 0]
+        write_at(cache.k, 2, pos, k.transpose(1, 2))
+        write_at(cache.v, 2, pos, v.transpose(1, 2))
         k_pos = torch.arange(s_max, device=x.device)
         valid = k_pos <= pos
         if window > 0:
@@ -362,21 +365,30 @@ class MLAttention(nn.Module):
         qf = torch.cat([q[..., :dn], q_rope], -1)
         kf = torch.cat([k_nope, k_rope[:, :, None].expand(
             B, S, H, m.rope_head_dim)], -1)
-        if flash.should_chunk(S, S):
-            # MHA: KV groups = H, group size 1
-            out = flash.online_attention(qf[:, :, :, None], kf, v,
-                                         causal=cfg.causal)[:, :, :, 0]
-        else:
-            scale = (dn + m.rope_head_dim) ** -0.5
-            # [B,H,S,hd] products
-            sc = (qf.transpose(1, 2) @ kf.permute(0, 2, 3, 1)).float()
-            sc = sc * scale
-            if cfg.causal:
-                pos = torch.arange(S, device=x.device)
-                sc = torch.where(pos[None, :] <= pos[:, None], sc, -1e30)
-            w = torch.softmax(sc, -1).to(x.dtype)
-            out = (w @ v.transpose(1, 2)).transpose(1, 2)  # [B,S,H,dv]
-        y = self._out(out.reshape(B, S, H * m.v_head_dim))
+
+        def heads(qf, kf, v):
+            """[B, S, H_shard, dn + dr], [B, S, H_shard, dn + dr],
+            [B, S, H_shard, dv] -> [B, S, H_shard * dv]."""
+            Bl, Sl, Hl = qf.shape[:3]
+            if flash.should_chunk(Sl, Sl):
+                # MHA: KV groups = H, group size 1
+                out = flash.online_attention(qf[:, :, :, None], kf, v,
+                                             causal=cfg.causal)[:, :, :, 0]
+            else:
+                scale = (dn + m.rope_head_dim) ** -0.5
+                # [B,H,S,hd] products
+                sc = (qf.transpose(1, 2) @ kf.permute(0, 2, 3, 1)).float()
+                sc = sc * scale
+                if cfg.causal:
+                    pos = torch.arange(Sl, device=qf.device)
+                    sc = torch.where(pos[None, :] <= pos[:, None], sc,
+                                     -1e30)
+                w = torch.softmax(sc, -1).to(qf.dtype)
+                out = (w @ v.transpose(1, 2)).transpose(1, 2)  # [B,S,H,dv]
+            return out.reshape(Bl, Sl, Hl * m.v_head_dim)
+
+        out = per_shard_heads(heads, qf, kf, v)
+        y = self._out(out)
         return y, torch.cat([c, k_rope], -1)
 
     # -- entry points --------------------------------------------------------
@@ -393,7 +405,7 @@ class MLAttention(nn.Module):
     def prefill(self, x, positions, cache: KVCache, *, window: int = 0):
         y, lat = self._full_attention(x, positions)
         S = x.shape[1]
-        cache.k[:, :S] = lat
+        write_at(cache.k, 1, 0, lat)
         cache.pos = S
         return y, cache
 
@@ -412,7 +424,7 @@ class MLAttention(nn.Module):
         q_rope = apply_rope(q[:, None, :, dn:], positions,
                             cfg.rope_theta)[:, 0]      # [B,H,dr]
         c, k_rope = self._latent(x, positions)
-        cache.k[:, pos] = torch.cat([c, k_rope], -1)[:, 0]
+        write_at(cache.k, 1, pos, torch.cat([c, k_rope], -1))
         c_all = cache.k[..., :r]                       # [B,S,r]
         kr_all = cache.k[..., r:]                      # [B,S,dr] (roped)
 
@@ -425,7 +437,7 @@ class MLAttention(nn.Module):
               + q_rope @ kr_all.transpose(1, 2)).float()  # [B,H,S]
         sc = sc * (dn + m.rope_head_dim) ** -0.5
         valid = torch.arange(s_max, device=x.device) <= pos
-        sc = torch.where(valid, sc, -1e30)
+        sc = torch.where(replicated_like(valid, sc), sc, -1e30)
         w = torch.softmax(sc, -1).to(x.dtype)
         ctx_lat = w @ c_all                            # [B,H,r]
         out = torch.bmm(ctx_lat.transpose(0, 1), wv)   # [H,B,dv]

@@ -13,6 +13,12 @@ stack's ``prefix``: the reference's name of its block (``b``, ``m``,
 Every cache is updated in place, the recurrent states of ``Mamba2Layer``
 and ``XLSTMLayer`` as much as the KV caches: ``prefill`` and ``decode``
 return the cache they were given.
+
+On placed parameters each block's attention, FFN or mixer output is
+reduced where a mesh dim leaves it a pending sum (``act_sharding.summed``)
+before it joins the residual stream: Megatron's all-reduce after the
+row-parallel product.  DTensor would otherwise carry the pending sum on
+and reduce-scatter it onto whatever dim a later op prefers.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.act_sharding import summed
 from repro_torch.models.attention import GQAttention, KVCache, MLAttention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (activation_fn, copy_state, declare,
@@ -102,9 +109,9 @@ class TransformerBlock(nn.Module):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         kw = {} if kv_src is None else {"kv_src": kv_src}
-        x = x + self.attn(h, positions, window=self.window, **kw)
+        x = x + summed(self.attn(h, positions, window=self.window, **kw))
         h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + self._ffn(h)
+        return x + summed(self._ffn(h))
 
     def init_cache(self, batch: int, s_max: int) -> KVCache:
         return self.attn.init_cache(batch, s_max)
@@ -113,17 +120,17 @@ class TransformerBlock(nn.Module):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         a, cache = self.attn.prefill(h, positions, cache, window=self.window)
-        x = x + a
+        x = x + summed(a)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + self._ffn(h), cache
+        return x + summed(self._ffn(h)), cache
 
     def decode(self, x, cache: KVCache):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         a, cache = self.attn.decode(h, cache, window=self.window)
-        x = x + a
+        x = x + summed(a)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + self._ffn(h), cache
+        return x + summed(self._ffn(h)), cache
 
 
 class Mamba2Layer(nn.Module):
@@ -139,7 +146,7 @@ class Mamba2Layer(nn.Module):
         self.ssm = Mamba2Block(cfg, device=device)
 
     def forward(self, x, positions):
-        return x + self.ssm(rms_norm(x, self.ln, self.cfg.norm_eps))
+        return x + summed(self.ssm(rms_norm(x, self.ln, self.cfg.norm_eps)))
 
     def init_cache(self, batch: int, s_max: int) -> SSMState:
         return self.ssm.init_state(batch)
@@ -148,11 +155,11 @@ class Mamba2Layer(nn.Module):
         y, state = self.ssm(rms_norm(x, self.ln, self.cfg.norm_eps),
                             return_state=True)
         copy_state(cache, state)
-        return x + y, cache
+        return x + summed(y), cache
 
     def decode(self, x, cache: SSMState):
         h = rms_norm(x, self.ln, self.cfg.norm_eps)
-        return x + self.ssm.decode(h, cache), cache
+        return x + summed(self.ssm.decode(h, cache)), cache
 
 
 class XLSTMLayer(nn.Module):
@@ -171,7 +178,7 @@ class XLSTMLayer(nn.Module):
             cfg, device=device)
 
     def forward(self, x, positions):
-        return x + self.cell(rms_norm(x, self.ln, self.cfg.norm_eps))
+        return x + summed(self.cell(rms_norm(x, self.ln, self.cfg.norm_eps)))
 
     def init_cache(self, batch: int, s_max: int):
         return self.cell.init_state(batch)
@@ -180,11 +187,11 @@ class XLSTMLayer(nn.Module):
         y, state = self.cell(rms_norm(x, self.ln, self.cfg.norm_eps),
                              return_state=True)
         copy_state(cache, state)
-        return x + y, cache
+        return x + summed(y), cache
 
     def decode(self, x, cache):
         h = rms_norm(x, self.ln, self.cfg.norm_eps)
-        return x + self.cell.decode(h, cache), cache
+        return x + summed(self.cell.decode(h, cache)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -10,14 +10,17 @@ the reference's (``repro/models/layers.py``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Optional, Sequence, Union
+import threading
+from typing import Callable, Iterator, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.dist.act_sharding import is_dtensor, replicated_like
+from repro_torch.dist.act_sharding import (is_dtensor, replicated_like,
+                                           summed, whole)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -81,6 +84,106 @@ def init_normal(module: nn.Module, generator: torch.Generator) -> None:
                 part.copy_(torch.randn(part.shape, generator=generator,
                                        device=part.device,
                                        dtype=torch.float32).mul_(std))
+
+
+# ---------------------------------------------------------------------------
+# loops on meta
+# ---------------------------------------------------------------------------
+
+_trip = threading.local()
+
+
+def trip_count() -> int:
+    """How many times the op now dispatched stands for: the product of
+    the enclosing :func:`counted_as` (1 outside any; :func:`uniform_loop`
+    sets it on meta); an op counter (``launch.op_analysis``) multiplies
+    each op's count by it."""
+    return getattr(_trip, "n", 1)
+
+
+@contextlib.contextmanager
+def counted_as(n: int) -> Iterator[None]:
+    prev = trip_count()
+    _trip.n = prev * n
+    try:
+        yield
+    finally:
+        _trip.n = prev
+
+
+class _OneForMany(torch.autograd.Function):
+    """``step(*inputs)`` run once, its ops counted ``n`` times in the
+    forward and in the backward pass (the backward recomputes the step
+    uncounted, then takes its gradient counted ``n`` times)."""
+
+    @staticmethod
+    def forward(ctx, step, n, *inputs):
+        ctx.step, ctx.n = step, n
+        ctx.save_for_backward(*inputs)
+        with counted_as(n):
+            return step(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(t.requires_grad)
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            with counted_as(0):
+                outs = ctx.step(*inputs)
+            want = [i for i, t in enumerate(inputs) if t.requires_grad]
+            with counted_as(ctx.n):
+                got = torch.autograd.grad(
+                    outs, [inputs[i] for i in want], grads,
+                    allow_unused=True)
+        out = [None] * len(inputs)
+        for i, g in zip(want, got):
+            out[i] = g
+        return (None, None, *out)
+
+
+def uniform_loop(step, n: int, carry: tuple = (), xs=lambda i: (),
+                 consts: tuple = ()) -> tuple:
+    """``n`` steps in order of ``step(i, *xs(i), *carry, *consts)``, which
+    returns ``(y, carry)``: (the list of the steps' ``y``, the last
+    carry).  Every step must have the same shapes, whatever ``i``.
+
+    On real tensors this is the Python loop.  On meta tensors, which have
+    shapes and no values (the dry run), the first and the last step run
+    as they are and one more stands for the ``n - 2`` between: an op
+    counter counts its ops ``n - 2`` times, forward and backward, as the
+    reference's HLO analysis multiplies a ``while`` body by its trip
+    count.  The ends differ from the steps between in the backward: the
+    first takes no gradient of the carry it was given unless the caller's
+    carry needs one, and the last none of a carry nobody reads.  ``step``
+    must take every tensor that needs a gradient through ``xs``,
+    ``carry`` or ``consts``, not from its closure: the counted backward
+    reaches only those.  On meta, only plain tensors (a DTensor's layout
+    may change from one step to the next)."""
+    carry = tuple(carry)
+    first = xs(0)
+    if n <= 3 or not any(t.is_meta for t in (*first, *carry, *consts)):
+        ys = []
+        for i in range(n):
+            y, carry = step(i, *(first if i == 0 else xs(i)), *carry,
+                            *consts)
+            ys.append(y)
+        return ys, tuple(carry)
+    y0, carry = step(0, *first, *carry, *consts)
+    carry = tuple(carry)
+    mid = xs(1)
+    k, c = len(mid), len(carry)
+
+    def flat(*a):
+        y, out = step(1, *a[:k], *a[k:k + c], *a[k + c:])
+        return (*out,) if y is None else (y, *out)
+
+    ins = (*mid, *carry, *consts)
+    assert all(t.is_meta and not is_dtensor(t) for t in ins)
+    outs = _OneForMany.apply(flat, n - 2, *ins)
+    y1 = None if y0 is None else outs[0]
+    carry = tuple(outs[0 if y0 is None else 1:])
+    y_last, carry = step(n - 1, *xs(n - 1), *carry, *consts)
+    return [y0] + [y1] * (n - 2) + [y_last], tuple(carry)
 
 
 # ---------------------------------------------------------------------------
@@ -156,31 +259,73 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# losses
+# the embedding gather
 # ---------------------------------------------------------------------------
 
-def _whole_last_dim(x: torch.Tensor) -> torch.Tensor:
-    """``x`` redistributed so that no mesh dim shards its last dim; a
-    plain tensor as it is."""
-    if not is_dtensor(x):
-        return x
-    from torch.distributed.tensor import Replicate
-    last = x.ndim - 1
-    if not any(p.is_shard(last) for p in x.placements):
-        return x
-    return x.redistribute(placements=[
-        Replicate() if p.is_shard(last) else p for p in x.placements])
+def embed_lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, table)``.
 
+    For a placed table (a DTensor) the gather runs on each rank's shards,
+    as GSPMD partitions it: the table is first made whole on its embed
+    dim (``SP_FSDP_RULES`` shards it there too); each rank looks up the
+    ids that fall in its rows of the vocab, zeros the others, and the
+    result is a pending sum (``Partial``) over the mesh dims that shard
+    the vocab, and sharded as the ids are over the others.  DTensor's own
+    masked gather fails on a table sharded on both dims (torch 2.13,
+    ``MaskPartial.apply_mask``: "The shape of the mask ... does not match
+    the shape of the indexed tensor"), and its backward refuses a
+    gradient that arrives as a plain pending sum ("Redistribution from
+    one partial type (P(sum)) to another (MaskP(sum ...)) is
+    unsupported": the starcoder2 and nemotron train cells).  On a mesh
+    of one rank every id falls in the rank's rows, and the result is the
+    plain gather's, bit for bit."""
+    if not is_dtensor(table):
+        return F.embedding(ids, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    table = whole(table, 1)
+    mesh, tpl = table.device_mesh, table.placements
+    ids = replicated_like(ids, table)
+    # a mesh dim that shards the vocab gives each of its ranks every id
+    ids = ids.redistribute(mesh, [Replicate() if t.is_shard(0) else p
+                                  for t, p in zip(tpl, ids.placements)])
+    size, off = compute_local_shape_and_global_offset(table.shape, mesh,
+                                                      tpl)
+    out_pl = [Partial() if t.is_shard(0) else p
+              for t, p in zip(tpl, ids.placements)]
+    # the table's gradient sums over the ranks that looked up other ids
+    grad_pl = [t if t.is_shard() else Partial() if p.is_shard()
+               else Replicate() for t, p in zip(tpl, ids.placements)]
+    local = ids.to_local()
+    lo, hi = off[0], off[0] + size[0]
+    inside = (local >= lo) & (local < hi)
+    rows = F.embedding(torch.where(inside, local - lo, 0),
+                       table.to_local(grad_placements=grad_pl))
+    rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+    shape = (*ids.shape, table.shape[1])
+    return DTensor.from_local(rows, mesh, out_pl, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over valid positions; logits in float32 for stability.
 
-    Vocab-sharded logits (a DTensor with its last dim sharded: the placed
-    model's head) are first gathered whole on the ranks of that mesh dim,
-    as GSPMD is free to do; the label gather then runs on whole rows
-    (DTensor's sharded gather fails on them in torch 2.13)."""
-    logits = _whole_last_dim(logits.float())
+    Logits placed on a mesh (a DTensor: the placed model's head) are first
+    reduced where a mesh dim leaves them ``Partial`` (a head that
+    contracts a sharded dim: gemma3's and Llama-3.2-Vision's under
+    ``arch_rules``) and gathered whole on the ranks of a mesh dim that
+    shards the vocab, as GSPMD is free to do; the label gather then runs
+    on whole rows (DTensor's gather fails on a sharded or pending sum in
+    torch 2.13: ``MaskPartial.apply_mask``, "too many indices")."""
+    logits = whole(summed(logits.float()), -1)
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels.long()[..., None],
                               dim=-1)[..., 0]

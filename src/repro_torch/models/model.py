@@ -48,7 +48,6 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.dist.act_sharding import (constrain, replicated_like,
@@ -57,7 +56,7 @@ from repro_torch.models.blocks import (Mamba2Layer, ScanStack,
                                       TransformerBlock, XLSTMLayer)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, declare, dtype_of,
-                                       init_normal, rms_norm)
+                                       embed_lookup, init_normal, rms_norm)
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 FRAME_DIM = 512          # the audio family's stub frame embeddings
@@ -232,6 +231,9 @@ class LM(nn.Module):
             declare(self, "vision_norm", (cfg.vlm.vision_dim,), dt, (None,),
                     dev, None)
 
+        # ``(caches, batch) -> caches`` placed; set by placing the
+        # parameters (``launch.specs.place_params``)
+        self.cache_placement = None
         L = cfg.num_layers
         # zamba2's shared attention block: one set of parameters
         self.shared = TransformerBlock(cfg, device=dev) \
@@ -322,7 +324,7 @@ class LM(nn.Module):
         cdt = self.compute_dtype
         if self.cfg.family == "audio":
             return inputs.to(cdt) @ self.frontend_proj.to(cdt)
-        x = summed(F.embedding(inputs.long(), self.embed)).to(cdt)
+        x = summed(embed_lookup(inputs.long(), self.embed)).to(cdt)
         return x * self.embed_scale
 
     def _vision(self, vision: Optional[torch.Tensor]
@@ -384,8 +386,13 @@ class LM(nn.Module):
 
     # -- serving --------------------------------------------------------------
     def init_caches(self, batch: int, s_max: int) -> List:
-        return [seg.init_cache(batch, s_max, **self._kw(name))
-                for name, seg in self.segments.items()]
+        """Fresh caches, placed on the parameters' mesh when they are
+        placed (``launch.specs.place_params`` sets ``cache_placement``)."""
+        caches = [seg.init_cache(batch, s_max, **self._kw(name))
+                  for name, seg in self.segments.items()]
+        if self.cache_placement is not None:
+            caches = self.cache_placement(caches, batch)
+        return caches
 
     def prefill(self, inputs: torch.Tensor, s_max: int, *,
                 vision: Optional[torch.Tensor] = None

@@ -22,8 +22,13 @@ deterministic:
   reference's ``.at[].add``; ``index_add_`` on the card adds in no fixed
   order).
 
-The reference's ``shard`` hook (expert parallelism over a mesh axis) is
-not ported: the port runs on one card.
+On placed parameters the routing, the dispatch and the combine run on
+every rank over the whole batch (``act_sharding.on_every_rank``: the
+capacity ranks each slot among all of the batch's slots, and torch 2.11's
+DTensor has no rule for the indexed copy), and the experts' products run
+on DTensors under the rules' ``experts`` and ``moe_ff`` axes.  The
+reference's ``shard`` hook (expert parallelism over a mesh axis by
+``shard_map``) is not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.dist.act_sharding import on_every_rank
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import activation_fn, declare, dtype_of
 
@@ -71,10 +77,11 @@ class MoEBlock(nn.Module):
                     ff ** -0.5)
         self.act = activation_fn(cfg.activation)
 
-    def route(self, xt: torch.Tensor):
+    def route(self, xt: torch.Tensor, router=None):
         """Routing in float32: (expert ids [T, k], weights [T, k])."""
         k = self.cfg.moe.experts_per_token
-        probs = torch.softmax(xt.float() @ self.router, dim=-1)
+        router = self.router if router is None else router
+        probs = torch.softmax(xt.float() @ router, dim=-1)
         top_w, top_e = torch.sort(probs, dim=-1, descending=True,
                                   stable=True)
         top_w, top_e = top_w[:, :k], top_e[:, :k]
@@ -102,25 +109,35 @@ class MoEBlock(nn.Module):
         n_tok = B * S
         k, E = m.experts_per_token, m.num_experts
         xt = x.reshape(n_tok, d)
-        top_e, top_w = self.route(xt)
-
-        # --- capacity-based dispatch ----------------------------------------
         cap = capacity(n_tok, k, E, m.capacity_factor)
-        buf_idx, keep = self.dispatch(top_e, cap)
         drop = E * cap                     # one spare row takes every drop
-        buf = x.new_zeros((drop + 1, d))
-        buf[buf_idx] = xt.repeat_interleave(k, dim=0)
-        buf = buf[:-1].view(E, cap, d)
+
+        # --- routing and capacity-based dispatch ------------------------------
+        # placed: on every rank over the whole batch (a slot's rank counts
+        # every earlier slot), on plain tensors
+        def dispatch(xt, router):
+            top_e, top_w = self.route(xt, router)
+            buf_idx, keep = self.dispatch(top_e, cap)
+            buf = xt.new_zeros((drop + 1, d))
+            buf[buf_idx] = xt.repeat_interleave(k, dim=0)
+            # dropped slots weigh 0
+            w = top_w.reshape(-1).to(x.dtype) * keep.to(x.dtype)
+            return buf[:-1].view(E, cap, d), buf_idx, w
+
+        buf, buf_idx, w = on_every_rank(dispatch, xt, self.router)
 
         # --- expert FFNs, batched over E --------------------------------------
         g = self.act(torch.bmm(buf, self.w_gate.to(x.dtype)))
         u = torch.bmm(buf, self.w_up.to(x.dtype))
-        h = torch.bmm(g * u, self.w_down.to(x.dtype)).view(drop, d)
+        h = torch.bmm(g * u, self.w_down.to(x.dtype))
 
-        # --- combine: dropped slots weigh 0 ----------------------------------
-        w = top_w.reshape(-1).to(x.dtype) * keep.to(x.dtype)
-        out = h[torch.clamp(buf_idx, max=drop - 1)] * w[:, None]
-        y = out.view(n_tok, k, d).sum(1)
+        # --- combine ------------------------------------------------------------
+        def combine(h, buf_idx, w):
+            out = h.view(drop, d)[torch.clamp(buf_idx, max=drop - 1)] \
+                * w[:, None]
+            return out.view(n_tok, k, d).sum(1)
+
+        y = on_every_rank(combine, h, buf_idx, w)
 
         # --- shared experts ---------------------------------------------------
         if m.shared_experts:

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.act_sharding import by_rows, whole
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ONES, declare, dtype_of, rms_norm
 
@@ -62,16 +63,22 @@ class Mamba2Block(nn.Module):
                 inner ** -0.5)
 
     # -- shared pieces --------------------------------------------------------
+    # placed: the projections are made whole on the dim they split, which
+    # the rules shard ("ff"); torch 2.11's DTensor gives a split of a
+    # sharded dim one placement for a mesh of two dims
+
     def _project(self, x):
-        proj = x @ self.in_proj.to(x.dtype)
+        proj = whole(x @ self.in_proj.to(x.dtype), -1)
         return proj.split([self.inner, self.conv_dim, self.heads], dim=-1)
 
     def _split_xbc(self, xbc):
-        return xbc.split([self.inner, self.N, self.N], dim=-1)
+        return whole(xbc, -1).split([self.inner, self.N, self.N], dim=-1)
 
-    def _gates(self, dt_raw):
-        dt = F.softplus(dt_raw.float() + self.dt_bias)
-        return dt, -torch.exp(self.A_log)                 # [.., H], [H] < 0
+    def _gates(self, dt_raw, A_log=None, dt_bias=None):
+        dt_bias = self.dt_bias if dt_bias is None else dt_bias
+        A_log = self.A_log if A_log is None else A_log
+        dt = F.softplus(dt_raw.float() + dt_bias)
+        return dt, -torch.exp(A_log)                      # [.., H], [H] < 0
 
     def _out(self, y, z):
         y = rms_norm(y * F.silu(z), self.norm, self.cfg.norm_eps)
@@ -81,18 +88,36 @@ class Mamba2Block(nn.Module):
     def forward(self, x, *, return_state: bool = False):
         s = self.cfg.ssm
         B, S, _ = x.shape
-        H, P, N, Q = self.heads, self.P, self.N, min(s.chunk, S)
-        assert S % Q == 0, f"seq {S} not divisible by chunk {Q}"
-        W, dtp = s.conv_width, x.dtype
+        assert S % min(s.chunk, S) == 0, \
+            f"seq {S} not divisible by chunk {min(s.chunk, S)}"
         z, xbc, dt_raw = self._project(x)
+        # placed: each rank its own batch rows, every head (torch 2.11's
+        # DTensor gives the conv's pad a malformed layout, and refuses the
+        # chunk products' flatten of a sharded batch and heads)
+        y, s_c, tail = by_rows(self._ssd, (xbc, dt_raw),
+                               (self.conv_w, self.A_log, self.D,
+                                self.dt_bias))
+        out = self._out(y.reshape(B, S, self.inner), z)
+        if return_state:
+            return out, SSMState(s_c, tail)
+        return out
+
+    def _ssd(self, xbc, dt_raw, conv_w, A_log, D, dt_bias):
+        """The causal conv and the chunked SSD on plain tensors: (y [B, S,
+        H, P] with the D skip, the final state [B, H, N, P], the last W - 1
+        conv inputs)."""
+        s = self.cfg.ssm
+        B, S, _ = xbc.shape
+        H, P, N, Q = self.heads, self.P, self.N, min(s.chunk, S)
+        W, dtp = s.conv_width, xbc.dtype
 
         # causal depthwise conv over (x, B, C)
-        w = self.conv_w.to(dtp)
+        w = conv_w.to(dtp)
         xbc_pad = F.pad(xbc, (0, 0, W - 1, 0))
         conv = sum(xbc_pad[:, i:i + S] * w[i] for i in range(W))
         xs, Bm, Cm = self._split_xbc(F.silu(conv))
 
-        dt, A = self._gates(dt_raw)                       # [B,S,H], [H]
+        dt, A = self._gates(dt_raw, A_log, dt_bias)       # [B,S,H], [H]
         xh = xs.reshape(B, S, H, P)
         nc = S // Q
         # head-major chunks: [B, nc, H, Q, P], [B, nc, 1, Q, N], [B, nc, H, Q]
@@ -105,7 +130,7 @@ class Mamba2Block(nn.Module):
 
         # intra-chunk (attention-like, causal within the chunk)
         rel = g[..., :, None] - g[..., None, :]           # [B,nc,H,Q,Q]
-        causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+        causal = torch.ones(Q, Q, dtype=torch.bool, device=xbc.device).tril()
         L = torch.exp(rel.masked_fill(~causal, float("-inf"))).to(dtp)
         cb = Cc @ Bc.transpose(-1, -2)                    # [B,nc,1,Q,Q]
         y = (cb * L) @ xbar                               # [B,nc,H,Q,P]
@@ -116,7 +141,7 @@ class Mamba2Block(nn.Module):
 
         # inter-chunk recurrence, one chunk at a time
         chunk_decay = torch.exp(g[..., -1]).to(dtp)       # [B,nc,H]
-        s_c = torch.zeros((B, H, N, P), dtype=dtp, device=x.device)
+        s_c = torch.zeros((B, H, N, P), dtype=dtp, device=xbc.device)
         s_prevs = []
         for c in range(nc):
             s_prevs.append(s_c)
@@ -125,11 +150,8 @@ class Mamba2Block(nn.Module):
         y = y + (Cc @ s_prevs) * torch.exp(g).to(dtp)[..., None]
 
         y = y.permute(0, 1, 3, 2, 4).reshape(B, S, H, P)
-        y = y + xh * self.D.to(dtp)[None, None, :, None]
-        out = self._out(y.reshape(B, S, self.inner), z)
-        if return_state:
-            return out, SSMState(s_c, xbc_pad[:, S:])
-        return out
+        y = y + xh * D.to(dtp)[None, None, :, None]
+        return y, s_c, xbc_pad[:, S:]
 
     # -- decode ---------------------------------------------------------------
     def init_state(self, batch: int) -> SSMState:

@@ -1586,3 +1586,96 @@ def test_placements_and_constrain_on_cuda_tensors(nccl_mesh_2d):
         y = constrain(xd)
     assert tuple(y.placements) == (Replicate(), Shard(1))
     assert torch.equal(y.full_tensor(), x)
+
+
+# -- every family placed (smoke phase 18) --------------------------------------
+
+def test_placed_granite_step_at_world_1_is_bit_equal_to_the_plain_step(
+        nccl_mesh_2d, monkeypatch):
+    """Smoke phase 18 (a) at world 1, the granite-moe smoke model: three
+    steps of the train cell placed by ``specs.place_cell`` (the MoE
+    dispatch on placed tensors) equal three plain steps from the same
+    seed bit for bit, in deterministic mode."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import specs
+    from repro_torch.models.model import LM
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    dev, B, S = torch.device("cuda"), 4, 64
+    cfg = get_smoke("granite_moe_1b_a400m")
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    batches = [_train_batch(cfg.vocab, dev, i, B=B, S=S) for i in range(3)]
+
+    def run(placed: bool):
+        lm = LM(cfg, device=dev,
+                generator=torch.Generator(dev).manual_seed(6))
+        bs = batches
+        if placed:
+            mesh = nccl_mesh_2d
+            sh = specs.cell_shardings(lm, "train", mesh, B, S,
+                                      specs.arch_rules(cfg, mesh))
+            step, (state, _) = specs.place_cell(
+                lm, "train", (None, batches[0]), sh, seq=S, opt_cfg=ocfg)
+            bs = [{k: distribute_tensor(v, mesh, sh[1][k].placements)
+                   for k, v in b.items()} for b in batches]
+        else:
+            step, state = make_train_step(lm, ocfg), init_train_state(lm)
+        losses = []
+        for b in bs:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        return {n: p.full_tensor() if placed else p
+                for n, p in state.params.items()}, losses
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        (want, lw), (got, lg) = run(False), run(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert lg == lw
+    for n, p in want.items():
+        assert got[n].device.type == "cuda"
+        assert torch.equal(got[n], p), n
+
+
+def test_placed_qwen3_decode_at_world_1_is_bit_equal_to_plain(nccl_mesh_2d):
+    """Smoke phase 18 (c) at world 1, the qwen3_8b smoke model: a prefill
+    and greedy decode steps on placed parameters and placed caches give
+    the plain run's logits bit for bit."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import specs
+    from repro_torch.models.model import LM
+    dev, B, S, new = torch.device("cuda"), 2, 32, 6
+    cfg = get_smoke("qwen3_8b")
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+
+    def run(placed: bool):
+        lm = LM(cfg, device=dev,
+                generator=torch.Generator(dev).manual_seed(7))
+        x = tokens
+        if placed:
+            sh = specs.cell_shardings(lm, "prefill", nccl_mesh_2d, B,
+                                      S + new, specs.arch_rules(
+                                          cfg, nccl_mesh_2d))
+            _, (_, b) = specs.place_cell(lm, "prefill", (None, {
+                "tokens": tokens}), sh, seq=S + new)
+            x = b["tokens"]
+        out = []
+        with torch.no_grad():
+            logits, caches = lm.prefill(x, S + new)
+            for _ in range(new):
+                out.append(logits[:, -1].full_tensor() if placed
+                           else logits[:, -1])
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+                logits, caches = lm.decode_step(tok, caches)
+        if placed:
+            assert all(isinstance(c.k, DTensor) for c in caches[0])
+        return torch.stack(out)
+
+    want, got = run(False), run(True)
+    assert got.device.type == "cuda"
+    assert torch.equal(got, want)
