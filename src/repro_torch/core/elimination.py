@@ -186,13 +186,16 @@ def eliminate_step(
     # variables before v prunes them (observed 100x+ slowdowns on
     # cyclic queries).  Output column order is (v, parents...) either
     # way downstream consumers re-sort.
-    phi_alpha = multiway_product(
-        rel, var_order=[v] + [u for u in order if u != v])
+    with _span(f"eliminate:{v}:product", cat="substep", var=v) as sp:
+        phi_alpha = multiway_product(
+            rel, var_order=[v] + [u for u in order if u != v])
+        sp.set(entries=int(phi_alpha.num_entries))
     if observe is not None:
         observe["product_entries"] = float(phi_alpha.num_entries)
     parents = tuple(u for u in phi_alpha.vars if u != v)
-    psi = _make_psi(phi_alpha, v, parents) if v in out_vars else None
-    msg = phi_alpha.marginalize_out(v)
+    with _span(f"eliminate:{v}:marginal", cat="substep", var=v):
+        psi = _make_psi(phi_alpha, v, parents) if v in out_vars else None
+        msg = phi_alpha.marginalize_out(v)
     return psi, parents, msg
 
 

@@ -57,6 +57,7 @@ from repro_torch.core.gfjs import generate_gfjs as generate_gfjs_numpy
 from repro_torch.core.potentials import INT, Factor, pack_keys
 from repro_torch.kernels import ops
 from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import NULL_SPAN
 from repro_torch.obs.trace import span as _span
 from repro_torch.relational.encoding import Domain
 
@@ -106,13 +107,36 @@ def _download(t: torch.Tensor, dtype: Optional[np.dtype] = None
     under an ``engine:download`` span (which also waits for the kernels
     that produce it).  A CUDA tensor of at least ``STAGE_BYTES`` goes
     through :func:`_staged`; anything smaller is one pageable copy (a CPU
-    tensor: no copy unless ``dtype`` widens it)."""
+    tensor: no copy unless ``dtype`` widens it).
+
+    Traced, the span splits into ``engine:download:ready`` (the wait for
+    the kernels), ``engine:download:d2h`` (the card's copy) and
+    ``engine:download:host`` (the host's copy or widening), each with its
+    ``bytes``; untraced, it adds no event, synchronize or clock read."""
     nbytes = t.numel() * t.element_size()
-    with _span("engine:download", cat="transfer", bytes=nbytes):
+    with _span("engine:download", cat="transfer", bytes=nbytes) as sp:
+        traced = sp is not NULL_SPAN
         if t.device.type == "cuda" and nbytes >= STAGE_BYTES:
-            return _staged(t.reshape(-1), dtype)
-        a = t.cpu().numpy()
-        return a if dtype is None or a.dtype == dtype else a.astype(dtype)
+            return _staged(t.reshape(-1), dtype, traced)
+        with _part(traced, "ready", nbytes):
+            if traced and t.device.type == "cuda":
+                torch.cuda.current_stream(t.device).synchronize()
+        with _part(traced, "d2h", nbytes):
+            a = t.cpu().numpy()
+        if dtype is None or a.dtype == dtype:
+            return a
+        with _part(traced, "host", nbytes):
+            return a.astype(dtype)
+
+
+def _part(traced: bool, part: str, nbytes: int):
+    """``engine:download:<part>`` where the download is traced, else the
+    shared no-op (no ambient lookup).  The parts that wait on the card
+    are device-annotated."""
+    if not traced:
+        return NULL_SPAN
+    return _span(f"engine:download:{part}", cat="transfer",
+                 device=part != "host", bytes=nbytes)
 
 
 # A large download goes through two pinned buffers of STAGE_BYTES: the
@@ -130,11 +154,18 @@ def _stage_pool() -> ThreadPoolExecutor:
                               thread_name_prefix="engine-download")
 
 
-def _staged(t: torch.Tensor, dtype: Optional[np.dtype]) -> np.ndarray:
+def _staged(t: torch.Tensor, dtype: Optional[np.dtype],
+            traced: bool) -> np.ndarray:
     """A 1-D CUDA tensor to a new numpy array through the staging
     buffers.  They are bytes from torch's caching host allocator, viewed
     as ``t``'s dtype, so every download reuses the same 2 x STAGE_BYTES of
-    pinned memory, whatever its dtype."""
+    pinned memory, whatever its dtype.
+
+    ``traced`` records an event before the first chunk's copy and, once
+    the first two copies are queued, waits on it under
+    ``engine:download:ready``; each chunk's wait for its copy is an
+    ``engine:download:d2h`` span and its move out of pinned memory an
+    ``engine:download:host`` span."""
     n = t.numel()
     out = np.empty(n, dtype or torch.empty(0, dtype=t.dtype).numpy().dtype)
     chunk = STAGE_BYTES // t.element_size()
@@ -143,6 +174,7 @@ def _staged(t: torch.Tensor, dtype: Optional[np.dtype]) -> np.ndarray:
     done = [torch.cuda.Event(), torch.cuda.Event()]
     chunks = -(-n // chunk)
     step = -(-chunk // STAGE_THREADS)
+    size = t.element_size()
 
     def copy_chunk(i: int) -> None:
         lo = i * chunk
@@ -151,17 +183,27 @@ def _staged(t: torch.Tensor, dtype: Optional[np.dtype]) -> np.ndarray:
         done[i % 2].record()
 
     with torch.cuda.device(t.device):
+        ready = None
+        if traced:
+            ready = torch.cuda.Event()
+            ready.record()
         copy_chunk(0)
         for i in range(chunks):
             if i + 1 < chunks:
                 copy_chunk(i + 1)
-            done[i % 2].synchronize()
+            if ready is not None:
+                with _part(traced, "ready", n * size):
+                    ready.synchronize()
+                ready = None
             lo = i * chunk
             m = min(chunk, n - lo)
-            dst, src = out[lo:lo + m], bufs[i % 2][:m].numpy()
-            list(_stage_pool().map(
-                lambda a: np.copyto(dst[a:a + step], src[a:a + step]),
-                range(0, m, step)))
+            with _part(traced, "d2h", m * size):
+                done[i % 2].synchronize()
+            with _part(traced, "host", m * size):
+                dst, src = out[lo:lo + m], bufs[i % 2][:m].numpy()
+                list(_stage_pool().map(
+                    lambda a: np.copyto(dst[a:a + step], src[a:a + step]),
+                    range(0, m, step)))
     return out
 
 

@@ -1,7 +1,6 @@
 """Public wrappers around the port's kernels — what the torch engine calls.
 
-Each call counts a launch in ``kernels.launches`` (plus the bytes an
-expansion writes in ``kernels.bytes_expanded``) and opens a
+Each call counts a launch in ``kernels.launches`` and opens a
 ``kernel:<name>`` span, as the reference's ``kernels/ops.py`` does.  No
 padding: the CUDA kernels take exact sizes, so the reference's power-of-two
 buckets (which only bound a jit cache) have no counterpart here, and no
@@ -37,13 +36,10 @@ from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import span as _span
 
 
-def _launch(kernel: str, expanded_bytes: int = 0, **args):
-    """Count a kernel call (+ bytes written by expansions) and open a
-    device-annotated span (the ambient no-op when tracing is off)."""
+def _launch(kernel: str, **args):
+    """Count a kernel call and open a device-annotated span (the ambient
+    no-op when tracing is off)."""
     REGISTRY.counter("kernels.launches").inc()
-    if expanded_bytes:
-        REGISTRY.counter("kernels.bytes_expanded", unit="B").inc(
-            expanded_bytes)
     return _span(f"kernel:{kernel}", cat="kernel", device=True, **args)
 
 
@@ -59,8 +55,7 @@ def rle_expand(payload: torch.Tensor, bounds: torch.Tensor, total: int,
     when given, it replaces ``bounds``.
     """
     bounds = bounds if meta is None else meta
-    with _launch("rle_expand", expanded_bytes=int(total) * 4,
-                 runs=int(payload.shape[0]), total=int(total),
+    with _launch("rle_expand", runs=int(payload.shape[0]), total=int(total),
                  dtype=str(payload.dtype).removeprefix("torch.")):
         return expand_gather(payload, bounds, total)
 
@@ -182,8 +177,7 @@ def rle_expand_many(payloads: torch.Tensor, bounds: torch.Tensor,
     one generation step).
     """
     k, runs = payloads.shape
-    with _launch("rle_expand_many", expanded_bytes=k * int(total) * 4,
-                 k=k, runs=runs, total=int(total)):
+    with _launch("rle_expand_many", k=k, runs=runs, total=int(total)):
         return expand_many(payloads, bounds, total)
 
 

@@ -67,7 +67,9 @@ def validate(doc: Any, *, expect_shards: bool = False,
         if f"phase:{phase}" not in names:
             errs.append(f"missing executor phase span 'phase:{phase}'")
 
-    elim = [ev for ev in complete if ev["name"].startswith("eliminate:")]
+    # the step spans, not their ``substep`` children (product, marginal)
+    elim = [ev for ev in complete if ev["name"].startswith("eliminate:")
+            and ev.get("cat") != "substep"]
     if not elim:
         errs.append("no elimination-step spans ('eliminate:<var>')")
     for ev in elim:

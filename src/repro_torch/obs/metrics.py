@@ -1,15 +1,9 @@
 """Counters, gauges, histograms — the metrics half of `repro.obs`.
 
 A :class:`MetricsRegistry` replaces the scattered stat dicts
-(``Executor.timings``, ``CacheStats`` increments, per-bench derived
-numbers) as the substrate: components bump named instruments, and
+(``CacheStats`` increments, per-bench derived numbers) as the substrate: components bump named instruments, and
 ``snapshot()`` returns one JSON-able dict for benchmarks, the service
 ``stats()`` endpoint, and ``explain(analyze=True)``.
-
-Legacy surfaces stay intact: :class:`TimingsView` is a real ``dict``
-subclass that mirrors phase timings into the registry's histograms, so
-``Executor.timings["summarize"]`` keeps working unchanged while the same
-number lands in ``executor.phase_seconds.summarize``.
 
 Everything here is stdlib-only (the planning path must stay jax-free)
 and thread-safe (the sharded build pool bumps counters concurrently).
@@ -19,7 +13,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 
 class Counter:
@@ -215,31 +209,3 @@ class MetricsRegistry:
 #: ``metrics=`` override but fall back here, so a bare
 #: ``GraphicalJoin(...).run()`` is still observable after the fact.
 REGISTRY = MetricsRegistry()
-
-
-class TimingsView(dict):
-    """``Executor.timings`` compatible dict that mirrors writes into
-    per-phase latency histograms (``executor.phase_seconds.<phase>``).
-
-    Subclassing ``dict`` keeps every legacy access pattern — key tests,
-    ``.get``, external mutation like ``gj.timings["aggregate"] = dt`` —
-    byte-for-byte identical while the measurement substrate moves to the
-    registry.  A fresh view is assigned wherever the old code assigned a
-    fresh ``{}`` so reset semantics are unchanged.
-    """
-
-    __slots__ = ("_registry", "_prefix")
-
-    def __init__(self, registry: Optional[MetricsRegistry] = None,
-                 prefix: str = "executor.phase_seconds", *args, **kw):
-        super().__init__(*args, **kw)
-        self._registry = registry if registry is not None else REGISTRY
-        self._prefix = prefix
-
-    def __setitem__(self, key: str, value: float) -> None:
-        super().__setitem__(key, value)
-        try:
-            v = float(value)
-        except (TypeError, ValueError):
-            return  # non-numeric write: keep dict semantics, skip the mirror
-        self._registry.histogram(f"{self._prefix}.{key}", unit="s").observe(v)

@@ -23,6 +23,11 @@ parent handoff** — the coordinator captures its span object and workers
 open their spans with ``tracer.span(name, parent=that_span)``.  The
 sharded-build pool in ``plan/executor.py`` is the canonical example.
 
+Every span carries a ``trace_id``: a root span's own ``span_id``,
+inherited by each of its descendants however their parent was found
+(ambient, handed across a thread, or grafted from another process), so
+the spans of one request or query share one id.
+
 Spans opened with ``device=True`` additionally enter a
 ``torch.profiler.record_function`` of the same name *if torch is already
 imported* (never importing it — this module stays stdlib-only), so host
@@ -61,6 +66,7 @@ class Span:
     t0: float = 0.0                # perf_counter seconds
     t1: float = 0.0
     args: Dict[str, Any] = field(default_factory=dict)
+    trace_id: Optional[int] = None  # the root's span_id
 
     @property
     def seconds(self) -> float:
@@ -79,6 +85,7 @@ class _NullSpan:
     name = cat = ""
     span_id = None
     parent_id = None
+    trace_id = None
     seconds = 0.0
 
     def set(self, **kw: Any) -> "_NullSpan":
@@ -165,9 +172,13 @@ class Tracer:
             state = _STATE.get()
             parent = state[1] if state is not None and state[0] is self \
                 else None
-        pid = parent.span_id if isinstance(parent, Span) else None
-        sp = Span(name=name, cat=cat, span_id=next(_IDS), parent_id=pid,
-                  tid=0, args=dict(args))
+        sid = next(_IDS)
+        if isinstance(parent, Span):
+            pid, trace = parent.span_id, parent.trace_id or parent.span_id
+        else:
+            pid, trace = None, sid
+        sp = Span(name=name, cat=cat, span_id=sid, parent_id=pid,
+                  tid=0, args=dict(args), trace_id=trace)
         return _SpanCtx(self, sp, device)
 
     def _record(self, span: Span) -> None:
@@ -192,7 +203,8 @@ class Tracer:
 
         Spans nest visually in Perfetto by time containment per (pid,
         tid) track; parent/child identity additionally rides in ``args``
-        (``span_id`` / ``parent_id``) for programmatic consumers.
+        (``span_id`` / ``parent_id`` / ``trace_id``) for programmatic
+        consumers.
         """
         pid = os.getpid()
         spans = self.spans
@@ -208,6 +220,7 @@ class Tracer:
         for s in sorted(spans, key=lambda s: s.t0):
             args = {k: _jsonable(v) for k, v in s.args.items()}
             args["span_id"] = s.span_id
+            args["trace_id"] = s.trace_id
             if s.parent_id is not None:
                 args["parent_id"] = s.parent_id
             events.append({
@@ -230,7 +243,8 @@ class Tracer:
         values — meaningless in another process until :meth:`graft`
         rebases them."""
         return [{"name": s.name, "cat": s.cat, "span_id": s.span_id,
-                 "parent_id": s.parent_id, "tid": s.tid,
+                 "parent_id": s.parent_id, "trace_id": s.trace_id,
+                 "tid": s.tid,
                  "t0": s.t0, "t1": s.t1,
                  "args": {k: _jsonable(v) for k, v in s.args.items()}}
                 for s in self.spans]
@@ -242,7 +256,9 @@ class Tracer:
         Every record gets a fresh span id from this process's counter;
         parent links *within* the record set are remapped, records whose
         parent is unknown (the worker's root) attach to ``parent``
-        (a :class:`Span`, or None for top-level).  ``offset`` is added to
+        (a :class:`Span`, or None for top-level).  Every grafted span
+        takes ``parent``'s ``trace_id``; without a parent, its own
+        grafted root's.  ``offset`` is added to
         every timestamp — the coordinator computes it so the worker's
         clock lands inside the observed dispatch window (the two
         ``perf_counter`` epochs are otherwise incomparable).
@@ -265,6 +281,17 @@ class Tracer:
         for r, sp in zip(records, out):
             pid = r.get("parent_id")
             sp.parent_id = idmap.get(pid, base) if pid is not None else base
+        if isinstance(parent, Span):
+            for sp in out:
+                sp.trace_id = parent.trace_id or parent.span_id
+        else:
+            by_id = {sp.span_id: sp for sp in out}
+            for sp in out:
+                root = sp
+                while root.parent_id in by_id:
+                    root = by_id[root.parent_id]
+                sp.trace_id = root.span_id
+        for sp in out:
             self._record(sp)
         return out
 

@@ -37,7 +37,7 @@ from repro_torch.core import engine
 from repro_torch.core.elimination import Generator, build_generator
 from repro_torch.core.gfjs import (GFJS, ShardedGFJS, desummarize,
                                    generate_gfjs, stream_desummarize)
-from repro_torch.obs.metrics import REGISTRY, MetricsRegistry, TimingsView
+from repro_torch.obs.metrics import REGISTRY, MetricsRegistry
 from repro_torch.obs.trace import (Tracer, ambient_tracer, span as obs_span,
                                    span_in)
 from repro_torch.plan.ir import LogicalPlan, PhysicalPlan
@@ -119,7 +119,7 @@ class Executor:
                 "record_trace is unsupported under a partitioned plan: "
                 "splice-based incremental refresh does not understand "
                 "shard structure (partitioned summaries rebuild on append)")
-        self.timings: Dict[str, float] = TimingsView(self.metrics)
+        self.timings: Dict[str, float] = {}
         self.enc: Optional[EncodedQuery] = None
         self.logical: Optional[LogicalPlan] = None
         self.plan: Optional[PhysicalPlan] = plan
@@ -187,7 +187,7 @@ class Executor:
         self.cached_steps = ()
         if not self._forced_plan:
             self.plan = None
-        self.timings = TimingsView(self.metrics)
+        self.timings = {}
 
     def build_plan(self) -> PhysicalPlan:
         """Logical plan + order search + physical pinning (cached)."""

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.graph import (QueryGraph, decompose_bags, min_fill_order,
                               structurally_acyclic)
+from repro_torch.obs.trace import span as _span
 from repro_torch.plan.cost import CostModel
 from repro_torch.plan.ir import BagStep, LogicalPlan, OrderCandidate, PhysicalPlan
 from repro_torch.plan.stats import QueryStats
@@ -41,7 +42,10 @@ def build_logical_plan(enc: EncodedQuery, *,
     projected_out = tuple(v for v in graph.variables if v not in out_vars) \
         if early_projection else ()
     if stats is None:
-        stats = QueryStats.of(enc)
+        with _span("plan:stats", cat="plan",
+                   rows=sum(len(next(iter(cols.values()), ()))
+                            for cols in enc.encoded_tables)):
+            stats = QueryStats.of(enc)
     return LogicalPlan(query, graph, out_vars, projected_out, stats)
 
 
@@ -230,7 +234,6 @@ def plan_query(enc: EncodedQuery, *,
             "hybrid=True is unsupported with partitions > 1 (bag potentials "
             "are built monolithically; partition the pure-GJ plan instead)")
     t0 = time.perf_counter()
-    from repro_torch.obs.trace import span as _span
     with _span("plan:search", cat="plan", planner=planner):
         return _plan_query_inner(
             enc, t0, elimination_order=elimination_order,
@@ -274,66 +277,68 @@ def _plan_query_inner(enc: EncodedQuery, t0: float, *,
             enc, tuple(order), logical.output_vars, table_versions)
         return frozenset(v for v, fp in fps.items() if fp in resident)
 
-    candidates: List[OrderCandidate] = []
-    # order -> (repriced steps, adjusted total, #cached steps)
-    sims: Dict[Tuple[str, ...], Tuple[Tuple, float, int]] = {}
+    with _span("plan:orders", cat="plan") as sp:
+        candidates: List[OrderCandidate] = []
+        # order -> (repriced steps, adjusted total, #cached steps)
+        sims: Dict[Tuple[str, ...], Tuple[Tuple, float, int]] = {}
 
-    def score(source: str, order: Sequence[str]) -> OrderCandidate:
-        order = tuple(order)
-        if order not in sims:
-            raw_steps, _ = model.simulate(order)
-            cached = _residency(order)
-            sims[order] = (*model.apply_residency(raw_steps, cached),
-                           len(cached))
-        return OrderCandidate(source, order, sims[order][1])
+        def score(source: str, order: Sequence[str]) -> OrderCandidate:
+            order = tuple(order)
+            if order not in sims:
+                raw_steps, _ = model.simulate(order)
+                cached = _residency(order)
+                sims[order] = (*model.apply_residency(raw_steps, cached),
+                               len(cached))
+            return OrderCandidate(source, order, sims[order][1])
 
-    if elimination_order is not None:
-        chosen = score("forced", tuple(elimination_order))
-        candidates.append(chosen)
-    else:
-        tri = min_fill_order(graph, first=first)
-        candidates.append(score("min_fill", tri.order))
-        if planner == "cost" and len(graph.variables) > 1:
-            candidates.append(score(
-                "greedy", greedy_order(model, graph.variables, first)))
-            for order in beam_orders(model, graph.variables, first,
-                                     beam_width=beam_width)[:1]:
-                candidates.append(score("beam", order))
-        # dedupe identical orders, keep first source naming it
-        seen: Dict[Tuple[str, ...], OrderCandidate] = {}
-        for c in candidates:
-            seen.setdefault(c.order, c)
-        candidates = list(seen.values())
-        # ties break first toward MORE reusable (cached) steps, then toward
-        # the paper's structural heuristic
-        chosen = min(candidates,
-                     key=lambda c: (c.cost, -sims[c.order][2],
-                                    c.source != "min_fill"))
+        if elimination_order is not None:
+            chosen = score("forced", tuple(elimination_order))
+            candidates.append(chosen)
+        else:
+            tri = min_fill_order(graph, first=first)
+            candidates.append(score("min_fill", tri.order))
+            if planner == "cost" and len(graph.variables) > 1:
+                candidates.append(score(
+                    "greedy", greedy_order(model, graph.variables, first)))
+                for order in beam_orders(model, graph.variables, first,
+                                         beam_width=beam_width)[:1]:
+                    candidates.append(score("beam", order))
+            # dedupe identical orders, keep first source naming it
+            seen: Dict[Tuple[str, ...], OrderCandidate] = {}
+            for c in candidates:
+                seen.setdefault(c.order, c)
+            candidates = list(seen.values())
+            # ties break first toward MORE reusable (cached) steps, then
+            # toward the paper's structural heuristic
+            chosen = min(candidates,
+                         key=lambda c: (c.cost, -sims[c.order][2],
+                                        c.source != "min_fill"))
 
-    steps, total, _ = sims[chosen.order]
-    steps = list(steps)
-    source = chosen.source
+        steps, total, _ = sims[chosen.order]
+        steps = list(steps)
+        source = chosen.source
 
-    # hypertree-decomposed hybrid candidate: WCOJ bag steps over the
-    # cyclic core, GJ elimination over the bag marginals for the spine.
-    # Gated to monolithic plans (bag potentials are built whole) and to
-    # structurally cyclic queries (propose_decomposition returns no bags
-    # otherwise, keeping acyclic signatures byte-unchanged).
-    bags: Tuple[BagStep, ...] = ()
-    if hybrid is not False and partitions == 1:
-        cand_bags, cand_steps, cand_total = propose_decomposition(
-            model, logical, chosen.order)
-        if cand_bags:
-            candidates = list(candidates) + [
-                OrderCandidate("hybrid", chosen.order, cand_total)]
-            if hybrid is True or cand_total < total:
-                bags, steps, total = cand_bags, cand_steps, cand_total
-                source = "hybrid"
-        elif hybrid is True:
-            raise ValueError(
-                f"hybrid=True requires a structurally cyclic query; "
-                f"{query.name!r} admits no multiway bag (a pure-GJ plan "
-                "is already hypertree-optimal on acyclic queries)")
+        # hypertree-decomposed hybrid candidate: WCOJ bag steps over the
+        # cyclic core, GJ elimination over the bag marginals for the spine.
+        # Gated to monolithic plans (bag potentials are built whole) and to
+        # structurally cyclic queries (propose_decomposition returns no bags
+        # otherwise, keeping acyclic signatures byte-unchanged).
+        bags: Tuple[BagStep, ...] = ()
+        if hybrid is not False and partitions == 1:
+            cand_bags, cand_steps, cand_total = propose_decomposition(
+                model, logical, chosen.order)
+            if cand_bags:
+                candidates = list(candidates) + [
+                    OrderCandidate("hybrid", chosen.order, cand_total)]
+                if hybrid is True or cand_total < total:
+                    bags, steps, total = cand_bags, cand_steps, cand_total
+                    source = "hybrid"
+            elif hybrid is True:
+                raise ValueError(
+                    f"hybrid=True requires a structurally cyclic query; "
+                    f"{query.name!r} admits no multiway bag (a pure-GJ plan "
+                    "is already hypertree-optimal on acyclic queries)")
+        sp.set(orders=len(sims))
 
     # distinct-key estimate only (a lower bound on materialized rows —
     # bucket/fac multiplicities are unknown at plan time); the executor

@@ -40,6 +40,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.gfjs import GFJS
 from repro_torch.core.potentials import INT, _rank_rows, group_ranks
+from repro_torch.obs.trace import span as _span
 
 Predicate = Union[Callable[[np.ndarray], np.ndarray], int, float, str,
                   Sequence, set, frozenset]
@@ -90,8 +91,10 @@ class SummaryFrame:
         dev = engine.resolve_device(device)
         if isinstance(gfjs, ShardedGFJS):
             return ShardedSummaryFrame.of(gfjs, dev)
-        return SummaryFrame(
-            gfjs, [lvl.freq.astype(INT) for lvl in gfjs.levels], dev)
+        with _span("frame:of", cat="summary") as sp:
+            weights = [lvl.freq.astype(INT) for lvl in gfjs.levels]
+            sp.set(bytes=sum(w.nbytes for w in weights))
+        return SummaryFrame(gfjs, weights, dev)
 
     # -- structure helpers -------------------------------------------------
     def level_of(self, var: str) -> int:
@@ -250,7 +253,16 @@ class SummaryFrame:
         Returns a dict of aligned arrays: one decoded column per key plus
         one per aggregate, rows sorted by key values.  Supported ops:
         count, sum, mean, min, max.
+
+        Traced, a ``frame:group_by`` span holds ``frame:keys`` (the live
+        runs' key codes), ``frame:rank`` (packing and, on the host path,
+        the sort) and ``frame:gather`` (the sorted keys and weights).
         """
+        with _span("frame:group_by", cat="summary"):
+            return self._group_by(keys, **aggs)
+
+    def _group_by(self, keys: Union[str, Sequence[str]],
+                  **aggs: AggSpec) -> Dict[str, np.ndarray]:
         dev = self.device
 
         def segment_weighted_sum(*args, **kw):
@@ -274,13 +286,14 @@ class SummaryFrame:
 
         involved = list(keys) + [v for _, v in specs.values() if v is not None]
         work = max(self.level_of(v) for v in involved)
-        w = self.weights[work]
-        live = w > 0
-
-        key_codes = np.stack(
-            [self._codes_at(k, work)[live] for k in keys], axis=1)
-        w = w[live].astype(INT)
-        nlive = key_codes.shape[0]
+        with _span("frame:keys", cat="summary") as sp:
+            w = self.weights[work]
+            live = w > 0
+            key_codes = np.stack(
+                [self._codes_at(k, work)[live] for k in keys], axis=1)
+            w = w[live].astype(INT)
+            nlive = key_codes.shape[0]
+            sp.set(runs=len(live), live=nlive)
         empty: Dict[str, np.ndarray] = {}
         if nlive == 0:
             for k in keys:
@@ -298,21 +311,24 @@ class SummaryFrame:
             return empty
 
         sizes = [self.gfjs.domains[k].size for k in keys]
-        ranks, packed = _rank_rows(key_codes, sizes)
-        if packed and nlive >= engine.GROUP_DEVICE_MIN_RUNS \
-                and engine.group_device_enabled(dev):
+        with _span("frame:rank", cat="summary") as sp:
+            ranks, packed = _rank_rows(key_codes, sizes)
             # large run counts: packed-key sort and run boundaries on the
             # card (DESIGN.md §14)
+            on_device = packed and nlive >= engine.GROUP_DEVICE_MIN_RUNS \
+                and engine.group_device_enabled(dev)
+            if not on_device:
+                order, seg, starts, ngroups = group_ranks(ranks)
+            sp.set(device=on_device)
+        if on_device:
             order, seg, starts, ngroups = engine.group_runs_device(
                 ranks, device=dev)
-        else:
-            order, seg, starts, ngroups = group_ranks(ranks)
-        w_s = w[order]
-        sorted_codes = key_codes[order]
-
-        out: Dict[str, np.ndarray] = {}
-        for j, k in enumerate(keys):
-            out[k] = self.gfjs.domains[k].decode(sorted_codes[starts, j])
+        with _span("frame:gather", cat="summary", groups=ngroups):
+            w_s = w[order]
+            sorted_codes = key_codes[order]
+            out: Dict[str, np.ndarray] = {}
+            for j, k in enumerate(keys):
+                out[k] = self.gfjs.domains[k].decode(sorted_codes[starts, j])
 
         counts: Optional[np.ndarray] = None
 

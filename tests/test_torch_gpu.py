@@ -12,6 +12,8 @@ Both ``dense_message`` kernels (thin K and tiled) are held to the same
 oracles.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -446,6 +448,52 @@ def test_staged_download_equals_a_pageable_copy(chunks, dtype):
     same = engine._download(t)
     assert same.dtype == t.cpu().numpy().dtype
     np.testing.assert_array_equal(same, t.cpu().numpy())
+
+
+def test_staged_download_spans_and_the_profilers_clock(tmp_path):
+    """Traced, a download of 4 chunks holds one ``ready`` span, then a
+    ``d2h`` and a ``host`` span per chunk, whose bytes sum to the
+    download's.  Each ``device=True`` span, placed on the profiler's clock
+    through one anchor (as ``gjbench/devtrace.py`` places host spans),
+    lies within 1 ms of the profiler's own event of its name."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    dev = _card()
+    chunk = engine.STAGE_BYTES // 4
+    n = 3 * chunk + 12345
+    t = torch.randint(-(1 << 30), 1 << 30, (n,), device=dev,
+                      dtype=torch.int32)
+    tr = Tracer()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("test:anchor"):
+            host_t0 = tr.clock()
+            with tr.span("root"):
+                got = engine._download(t, np.int64)
+    np.testing.assert_array_equal(got, t.cpu().numpy())
+    (dl,) = [s for s in tr.spans if s.name == "engine:download"]
+    kids = {}
+    for s in sorted(tr.spans, key=lambda s: s.t0):
+        if s.parent_id == dl.span_id:
+            kids.setdefault(s.name.rsplit(":", 1)[1], []).append(s)
+    assert len(kids["ready"]) == 1
+    assert len(kids["d2h"]) == len(kids["host"]) == 4
+    assert sum(s.args["bytes"] for s in kids["host"]) == dl.args["bytes"] \
+        == 4 * n
+    assert kids["ready"][0].t1 <= kids["d2h"][0].t0
+
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    (anchor,) = [e for e in events if e["name"] == "test:anchor"]
+    for name in ("engine:download:ready", "engine:download:d2h"):
+        spans = [s for s in tr.spans if s.name == name]
+        marks = sorted(float(e["ts"]) for e in events if e["name"] == name)
+        assert len(marks) == len(spans)
+        for s, ts in zip(sorted(spans, key=lambda s: s.t0), marks):
+            placed = float(anchor["ts"]) + (s.t0 - host_t0) * 1e6
+            assert abs(placed - ts) < 1000.0, (name, placed - ts)
 
 
 def test_zero_length_run_level_on_the_card_goes_through_the_kernel():
