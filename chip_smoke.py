@@ -19,7 +19,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    host prefix sums, both checked), again, and on a memo-free copy of the
    GFJS (which uploads its levels), the three ``torch.equal``; each call's
    ``engine:upload`` / ``engine:download`` bytes, ``summarize``'s split
-   between its ``gfjs:level:*`` and ``engine:download`` spans, the memo's
+   between its ``gfjs:level:*`` and ``engine:download`` spans (none since
+   a level's host arrays download on their first read), the memo's
    ``aux_nbytes``, peak device bytes, and the card's busy share of
    ``run()`` and ``desummarize`` (profiler trace);
 5. ``lastfm_A2`` at the same scale, generated and desummarized on the card

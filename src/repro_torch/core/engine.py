@@ -679,8 +679,10 @@ def generate_gfjs(
     (expansion is order-preserving in both engines).  Each level's int32
     codes and launch metadata (``ops.level_meta``) stay on the device in
     the returned GFJS's memo (``GFJS._launch``), so that ``desummarize``
-    uploads nothing; its host arrays are downloaded once, under
-    ``engine:download`` spans after the level's ``gfjs:level:*`` span.
+    uploads nothing.  Each generated level's host arrays are a deferred
+    mirror of that memo (:func:`_mirror_fetch`): nothing is downloaded
+    here, and the first host read of a level downloads it once, under
+    ``engine:download`` spans, counted in ``engine.mirror_fetches``.
     """
     dev = resolve_device(device)
     if not _torch_generable(gen):
@@ -708,12 +710,32 @@ def generate_gfjs(
                 cols, p_bucket, level, n, dev)
             codes = torch.stack([cols[v] for v in new_vars])
             bounds = ops.level_meta(freq, gen.join_size)
+            del freq
             sp.set(runs=n, vars=",".join(new_vars), identity=bounds is None)
         runs_hist.observe(n)
         ops.memoize_level(launch, depth + 1, dev, bounds, codes)
-        levels_out.append(LevelSummary(
-            new_vars, {v: _download(codes[k], np.int64)
-                       for k, v in enumerate(new_vars)}, _download(freq)))
-        del freq
+        levels_out.append(LevelSummary.deferred(
+            new_vars, n, _mirror_fetch(new_vars, codes, bounds, n)))
     return GFJS(levels_out, list(gen.column_order), gen.join_size, domains,
                 _launch=launch)
+
+
+def _mirror_fetch(names: Sequence[str], codes: torch.Tensor,
+                  bounds: Optional[torch.Tensor], runs: int):
+    """The fetch of a generated level's host arrays from its memo entry:
+    the int32 codes, widened to int64 on the host, and the run lengths,
+    the first difference of the int32 bounds downloaded (widened on the
+    host) and taken on the host, so the read needs no device memory.  An
+    identity level's run lengths are ones, made on the host."""
+    def fetch() -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+        REGISTRY.counter("engine.mirror_fetches").inc()
+        key_cols = {v: _download(codes[k], np.int64)
+                    for k, v in enumerate(names)}
+        if bounds is None:
+            return key_cols, np.ones(runs, INT)
+        ends = _download(bounds, np.int64)
+        freq = np.empty_like(ends)
+        freq[:1] = ends[:1]
+        np.subtract(ends[1:], ends[:-1], out=freq[1:])
+        return key_cols, freq
+    return fetch

@@ -21,8 +21,10 @@ equal to the RLE of the fully sorted join result (Definition 1).
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
@@ -33,20 +35,77 @@ from repro_torch.obs.trace import span as _span
 from repro_torch.relational.encoding import Domain
 
 
-@dataclass
 class LevelSummary:
-    """One GFJS level: RLE runs for the variables introduced at this level."""
+    """One GFJS level: RLE runs for the variables introduced at this level.
 
-    vars: Tuple[str, ...]
-    key_cols: Dict[str, np.ndarray]   # var -> codes per run
-    freq: np.ndarray                  # run lengths; sums to join_size
+    ``key_cols`` (var -> codes per run) and ``freq`` (run lengths; sums to
+    join_size) are numpy arrays.  A level made by :meth:`deferred` holds
+    them elsewhere (on the device, for ``engine.generate_gfjs``) and fills
+    them on the first read of either: ``fetch`` runs once, under the
+    level's lock, and is dropped after, with whatever it referenced.
+    ``num_runs`` and :meth:`nbytes` never fetch; pickling or copying a
+    level fetches it first.
+    """
+
+    def __init__(self, vars: Tuple[str, ...], key_cols: Dict[str, np.ndarray],
+                 freq: np.ndarray) -> None:
+        self.vars = vars
+        self._key_cols = key_cols
+        self._freq = freq
+        self._num_runs = len(freq)
+        self._fetch: Optional[Callable[[], tuple]] = None
+
+    @classmethod
+    def deferred(cls, vars: Sequence[str], num_runs: int,
+                 fetch: Callable[[], Tuple[Dict[str, np.ndarray], np.ndarray]]
+                 ) -> "LevelSummary":
+        """A level of ``num_runs`` runs whose arrays ``fetch()`` returns as
+        ``(key_cols, freq)``, int64, on the first read."""
+        lvl = cls.__new__(cls)
+        lvl.vars, lvl._key_cols, lvl._freq = tuple(vars), None, None
+        lvl._num_runs, lvl._fetch = int(num_runs), fetch
+        lvl._lock = threading.Lock()
+        return lvl
+
+    def _mirror(self) -> None:
+        if self._fetch is None:
+            return
+        with self._lock:
+            if self._fetch is not None:
+                # key_cols, then freq, then no fetch: a reader that sees
+                # either of the last two sees key_cols
+                key_cols, freq = self._fetch()
+                self._key_cols = key_cols
+                self._freq = freq
+                self._fetch = None
+
+    @property
+    def key_cols(self) -> Dict[str, np.ndarray]:
+        self._mirror()
+        return self._key_cols
+
+    @property
+    def freq(self) -> np.ndarray:
+        self._mirror()
+        return self._freq
 
     @property
     def num_runs(self) -> int:
-        return len(self.freq)
+        return self._num_runs
 
     def nbytes(self) -> int:
-        return int(sum(v.nbytes for v in self.key_cols.values()) + self.freq.nbytes)
+        if self._freq is None:   # not fetched: the int64 arrays it will hold
+            return self._num_runs * 8 * (len(self.vars) + 1)
+        return int(sum(v.nbytes for v in self._key_cols.values())
+                   + self._freq.nbytes)
+
+    def __reduce__(self):
+        return LevelSummary, (self.vars, self.key_cols, self.freq)
+
+    def __repr__(self) -> str:
+        state = "deferred" if self._freq is None else "on the host"
+        return (f"LevelSummary(vars={self.vars!r}, "
+                f"num_runs={self.num_runs}, {state})")
 
 
 @dataclass
@@ -63,8 +122,15 @@ class GFJS:
     # level (one run per row), None codes a level whose codes pass int32.
     # One entry per level (another device replaces it), filled by
     # repro_torch.core.engine.generate_gfjs or lazily by
-    # repro_torch.kernels.ops.gfjs_launch (this module stays torch-free)
+    # repro_torch.kernels.ops.gfjs_launch (this module stays torch-free).
+    # A generated level's host arrays are a deferred mirror of its entry
+    # (LevelSummary.deferred), fetched on their first read
     _launch: Dict[int, tuple] = field(default_factory=dict, repr=False)
+
+    def __getstate__(self) -> dict:
+        # the memo stays in its process: a GFJS read back uploads each
+        # level on its first launch, as one loaded from storage does
+        return {**self.__dict__, "_launch": {}}
 
     @property
     def num_columns(self) -> int:

@@ -130,7 +130,9 @@ def gfjs_launch(gfjs, level: int, device
     a host check of their range, the int64 run lengths as they are, which
     are then scanned and cast on the device.  One entry per level, kept on
     ``GFJS._launch``: another device replaces it, so the memo stays bounded
-    and ``GFJS.aux_nbytes`` counts it.
+    and ``GFJS.aux_nbytes`` counts it.  A generated level's host arrays are
+    read before the entry is replaced, which fetches their deferred mirror
+    from the old entry's tensors.
     """
     dev = _memo_device(device)
     hit = gfjs._launch.get(level)

@@ -240,13 +240,27 @@ def test_desummarize_after_run_uploads_nothing():
     assert spans_bytes(tr, "engine:upload", since) == (0, 0)
     assert not gfjs._bounds
     assert len(cols) == gfjs.num_columns
-    # run() downloaded each generated level once: one span per int32 code
-    # column (widened on the host) and one for the int64 run lengths
-    n, nbytes = spans_bytes(tr, "engine:download")
+    # neither run() nor desummarize downloaded a level; the first host read
+    # of each generated level downloads it once: one span per int32 code
+    # column (widened on the host) and one for the int32 bounds, whose
+    # difference the host takes (none for an identity level's ones)
+    assert spans_bytes(tr, "engine:download") == (0, 0)
     deep = gfjs.levels[1:]
-    assert n == sum(len(lvl.vars) + 1 for lvl in deep)
-    assert nbytes == sum(lvl.num_runs * (4 * len(lvl.vars) + 8)
-                         for lvl in deep)
+    since = len(tr.spans)
+    with tr.span("read"):
+        for lvl in deep:
+            lvl.freq
+    n, nbytes = spans_bytes(tr, "engine:download", since)
+    ranged = [gfjs._launch[li][1][0] is not None
+              for li in range(1, len(gfjs.levels))]
+    assert n == sum(len(lvl.vars) + r for lvl, r in zip(deep, ranged))
+    assert nbytes == sum(lvl.num_runs * 4 * (len(lvl.vars) + r)
+                         for lvl, r in zip(deep, ranged))
+    since = len(tr.spans)
+    with tr.span("read"):
+        for lvl in deep:
+            lvl.key_cols, lvl.freq
+    assert spans_bytes(tr, "engine:download", since) == (0, 0)
 
 
 def test_memoized_codes_equal_the_levels():

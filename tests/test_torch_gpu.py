@@ -384,6 +384,62 @@ def test_desummarize_after_run_on_the_card_uploads_nothing():
         np.testing.assert_array_equal(cols[v].cpu().numpy(), want[v])
 
 
+@pytest.mark.parametrize("stage", [None, 1 << 12])
+def test_run_on_the_card_downloads_no_level_until_its_first_read(
+        monkeypatch, stage):
+    """run() and desummarize(decode=False) download no level: every
+    download they make lies outside ``phase:summarize``.  The first host
+    read of each generated level downloads its int32 codes and bounds
+    once, equal to the numpy route, and adds at most one STAGE_BYTES chunk
+    to the card's peak (the bounds' difference is taken on the host).
+    ``stage`` = 4 KB sends each level through the staging buffers."""
+    from repro_torch.obs.metrics import REGISTRY
+    dev = _card()
+    if stage is not None:
+        monkeypatch.setattr(engine, "STAGE_BYTES", stage)
+    fetches = REGISTRY.counter("engine.mirror_fetches")
+    before = fetches.value
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gj, g, tr = _a1_on_card(dev)
+    cols = gj.desummarize(g, decode=False)
+    torch.cuda.synchronize(dev)
+    assert fetches.value == before
+    spans = {s.span_id: s for s in tr.spans}
+
+    def in_summarize(s):
+        while s is not None:
+            if s.name == "phase:summarize":
+                return True
+            s = spans.get(s.parent_id)
+        return False
+
+    assert not any(in_summarize(s) for s in tr.find("engine:download"))
+    peak, held = (torch.cuda.max_memory_allocated(dev),
+                  torch.cuda.memory_allocated(dev))
+    since = len(tr.spans)
+    with tr.span("read"):
+        for lvl in g.levels[1:]:
+            lvl.freq
+    torch.cuda.synchronize(dev)
+    assert fetches.value == before + len(g.levels) - 1
+    assert torch.cuda.max_memory_allocated(dev) <= peak + engine.STAGE_BYTES
+    assert torch.cuda.memory_allocated(dev) <= held
+    ranged = [g._launch[li][1][0] is not None
+              for li in range(1, len(g.levels))]
+    n, nbytes = spans_bytes(tr, "engine:download", since)
+    assert n == sum(len(lvl.vars) + r for lvl, r in zip(g.levels[1:], ranged))
+    assert nbytes == sum(lvl.num_runs * 4 * (len(lvl.vars) + r)
+                         for lvl, r in zip(g.levels[1:], ranged))
+    cat, qs = lastfm_like(n_users=300, n_artists=400, artists_per_user=8,
+                          friends_per_user=4)
+    want = repro_torch.GraphicalJoin(cat, qs["lastfm_A1"], device="cpu",
+                                     generation_backend="numpy").run()
+    assert_gfjs_equal(g, want)
+    assert fetches.value == before + len(g.levels) - 1
+    del cols
+
+
 def test_memo_free_copy_on_the_card_equals_the_memoized_path():
     dev = _card()
     gj, g, tr = _a1_on_card(dev)
@@ -830,8 +886,12 @@ def test_concurrent_partitioned_builds_on_the_card_are_exact(monkeypatch):
         def build(name):
             try:
                 barrier.wait()
-                got[name] = repro_torch.GraphicalJoin(
+                g = repro_torch.GraphicalJoin(
                     cat, qs[name], partitions=4, device="cuda").run()
+                for shard in g.shards:      # each first read downloads
+                    for lvl in shard.levels:
+                        lvl.freq
+                got[name] = g
             except Exception as e:  # pragma: no cover - reported below
                 errors.append(e)
 
