@@ -42,6 +42,7 @@ from repro_torch.relational.synth import figure1
 
 from test_plan import SHAPES, _random_instance, _row_multiset
 from torch_cases import assert_gfjs_equal, port_catalog, port_query
+import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

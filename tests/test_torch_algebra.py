@@ -26,6 +26,7 @@ from repro_torch.relational.query import JoinQuery
 from repro_torch.summary.algebra import ShardedSummaryFrame, SummaryFrame
 
 from test_summary_algebra import CASES, SHAPES, random_instance
+import torch_threads  # noqa: F401
 
 RTOL = 1e-12
 

@@ -44,6 +44,7 @@ from torch_media import (F32_TOL, batch_of, configs, logits_of,  # noqa: F401
                          test_reference_checkpoint_restores_in_the_port,
                          test_remat_and_no_remat_grads_are_bit_equal,
                          test_train_step_matches_reference, twin_models)
+import torch_threads  # noqa: F401
 
 # depth tier: jax compiles each reference model's scans
 pytestmark = pytest.mark.slow

@@ -27,6 +27,7 @@ from repro_torch.relational.encoding import encode_query
 from repro_torch.relational.query import JoinQuery
 
 from test_core_property import COMMON, _mk_query, join_instances
+import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.slow
 

@@ -42,6 +42,8 @@ from repro_torch.train import optim
 from repro_torch.train.train_step import (TrainState, init_train_state,
                                           make_train_step)
 
+import torch_threads  # noqa: F401
+
 # depth tier, beside tests/test_train_ft.py
 pytestmark = pytest.mark.slow
 

@@ -20,6 +20,8 @@ from repro.relational.synth import lastfm_like as ref_lastfm_like
 from repro_torch.data import JoinCorpus, TokenBatcher
 from repro_torch.relational.synth import lastfm_like
 
+import torch_threads  # noqa: F401
+
 LASTFM = dict(n_users=40, n_artists=30, artists_per_user=3,
               friends_per_user=2, seed=3)
 VOCAB = 151_936

@@ -33,6 +33,7 @@ from repro_torch.obs.metrics import REGISTRY
 from repro_torch.relational.synth import lastfm_like
 
 from torch_cases import dense_cases, dense_oracle, numpy_message
+import torch_threads  # noqa: F401
 
 CASES = dense_cases()
 # the plain version's int64 mm on the CPU: keep the CPU sweep small

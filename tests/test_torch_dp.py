@@ -64,6 +64,7 @@ from repro_torch.train import (AdamWConfig, compressed_psum,
                                make_train_step)
 
 import torch_dp_world as W
+import torch_threads  # noqa: F401
 
 EXACT_TOL = 2e-5            # the reference's gate, tests/test_dist.py
 LOSS_TOL = 1e-4             # each compressed step's loss, absolute

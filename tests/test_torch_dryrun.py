@@ -28,6 +28,7 @@ from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes
 from repro_torch.launch import dryrun
 
 from torch_dryrun_ref import reference_argument_bytes, unit
+import torch_threads  # noqa: F401
 
 CELLS = [(a, s) for a in ARCH_IDS for s in applicable_shapes(a)]
 KEYS = {"arch", "shape", "mesh", "kind", "devices", "seconds", "flops",

@@ -28,6 +28,7 @@ from repro_torch.relational.query import JoinQuery
 
 from test_plan import SHAPES, _random_instance
 from torch_cases import assert_gfjs_equal, memo_free
+import torch_threads  # noqa: F401
 
 
 def port_twin(cat, query, spec, output=None):

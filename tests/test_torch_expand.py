@@ -35,6 +35,7 @@ from repro_torch.relational.synth import lastfm_like
 from torch_cases import (bounds_of, expand_cases, gather_cases, level_gfjs,
                          memo_free, repeat_oracle, spans_bytes,
                          zero_run_identity_gfjs)
+import torch_threads  # noqa: F401
 
 CASES = expand_cases()
 GATHER = gather_cases()

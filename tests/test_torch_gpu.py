@@ -42,6 +42,7 @@ from torch_cases import (assert_gfjs_equal, boundaries_cases, bounds_of,
                          gather_cases, level_gfjs, memo_free, numpy_message,
                          repeat_oracle, segsum_cases, spans_bytes,
                          zero_run_identity_gfjs)
+import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 

@@ -29,6 +29,7 @@ from repro_torch.summary.algebra import SummaryFrame
 from test_incremental import SHAPES, random_block, random_instance
 from test_torch_algebra import assert_same
 from torch_cases import assert_gfjs_equal, port_catalog, port_query
+import torch_threads  # noqa: F401
 
 CASES = [(s, seed) for s in SHAPES for seed in range(3)]
 

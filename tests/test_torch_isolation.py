@@ -47,6 +47,8 @@ from repro_torch.summary.algebra import SummaryFrame
 from repro_torch.train.optim import AdamWConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
+import torch_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 
 CHILD = """

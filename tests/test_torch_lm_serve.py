@@ -42,6 +42,8 @@ from repro_torch.serve import (JoinServer, RelationalFeatureProvider,
                                ServeConfig, ServeEngine, make_serve_step)
 from repro_torch.summary import JoinService
 
+import torch_threads  # noqa: F401
+
 # depth tier: jax compiles the reference engine's prefill and decode
 pytestmark = pytest.mark.slow
 

@@ -38,6 +38,7 @@ from repro_torch.relational.synth import lastfm_like
 from test_plan import SHAPES, _random_instance
 from test_torch_engine import both_generators
 from torch_cases import assert_gfjs_equal, spans_bytes
+import torch_threads  # noqa: F401
 
 SMALL_LASTFM = dict(n_users=150, n_artists=120, artists_per_user=5,
                     friends_per_user=3)

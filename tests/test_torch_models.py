@@ -39,6 +39,8 @@ from repro_torch.models import flash, layers
 from repro_torch.models.attention import GQAttention
 from repro_torch.models.model import LM
 
+import torch_threads  # noqa: F401
+
 # depth tier: jax compiles each reference model's scans
 pytestmark = pytest.mark.slow
 

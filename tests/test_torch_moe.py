@@ -50,6 +50,7 @@ from repro_torch.serve import ServeConfig, ServeEngine
 
 from test_torch_models import (F32_TOL, assert_bf16_close, port_logits,
                                real_logits, tokens)
+import torch_threads  # noqa: F401
 
 # depth tier: jax compiles each reference model's scans
 pytestmark = pytest.mark.slow

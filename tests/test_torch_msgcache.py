@@ -30,6 +30,7 @@ from repro_torch.summary.msgcache import (MessageCache, _entry_from_bytes,
 from test_msgcache import (snowflake_catalog, snowflake_query,
                            triangle_catalog, triangle_query)
 from torch_cases import assert_gfjs_equal, port_catalog, port_query
+import torch_threads  # noqa: F401
 
 
 def suite(seed):

@@ -47,6 +47,7 @@ from repro_torch.summary.algebra import ShardedSummaryFrame, SummaryFrame
 from test_plan import SHAPES, _random_instance
 from test_torch_algebra import assert_same
 from torch_cases import assert_gfjs_equal, port_catalog, port_query
+import torch_threads  # noqa: F401
 
 LASTFM = dict(n_users=60, n_artists=50, artists_per_user=4,
               friends_per_user=3, seed=0)

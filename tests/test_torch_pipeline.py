@@ -23,6 +23,7 @@ from repro_torch.obs.trace import Tracer
 from repro_torch.relational import synth
 
 from test_torch_engine import assert_gfjs_equal
+import torch_threads  # noqa: F401
 
 LASTFM = dict(n_users=60, n_artists=80, artists_per_user=4,
               friends_per_user=3, seed=0)

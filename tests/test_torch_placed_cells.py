@@ -43,6 +43,7 @@ from repro_torch.interop import lm_reference_name
 from repro_torch.models.model import LM
 
 import torch_placed_world as W
+import torch_threads  # noqa: F401
 
 GATE = 2e-5                 # tests/test_dist.py's GSPMD gate
 LOGIT_TOL = 1e-5            # serving: |placed - plain| / max|plain|

@@ -55,6 +55,7 @@ from repro_torch.models.model import LM
 from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
 from torch_dryrun_ref import reference_argument_bytes, unit
+import torch_threads  # noqa: F401
 
 CELLS = [(a, s) for a in ARCH_IDS for s in applicable_shapes(a)]
 

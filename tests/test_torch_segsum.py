@@ -33,6 +33,8 @@ from repro_torch.kernels.run_boundaries import run_boundaries
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.relational.query import JoinQuery
 
+import torch_threads  # noqa: F401
+
 
 def dense_segments(n, segs, rng):
     """Sorted dense ids over n entries (test_mul_segsum_shapes' recipe)."""

@@ -36,6 +36,7 @@ from repro_torch.summary import JoinService
 from test_msgcache import snowflake_catalog, snowflake_query
 from test_server import _gate_frames
 from torch_cases import port_query
+import torch_threads  # noqa: F401
 
 LASTFM = dict(n_users=50, n_artists=40, artists_per_user=4,
               friends_per_user=3)

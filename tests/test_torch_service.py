@@ -32,6 +32,7 @@ from repro_torch.summary.cache import cache_key_for_versions
 
 from test_torch_algebra import assert_same
 from torch_cases import assert_gfjs_equal
+import torch_threads  # noqa: F401
 
 LASTFM = dict(n_users=60, n_artists=50, artists_per_user=4,
               friends_per_user=3)

@@ -64,6 +64,7 @@ from repro_torch.models.model import LM
 from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
 import torch_sharding_world as W
+import torch_threads  # noqa: F401
 
 GATE = 2e-5                 # tests/test_dist.py's GSPMD gate
 MESHES = {"16x16": ((16, 16), ("data", "model")),

@@ -21,6 +21,8 @@ from repro_torch.plan import search
 from repro_torch.relational.synth import figure1
 from repro_torch.summary import JoinService, algebra
 
+import torch_threads  # noqa: F401
+
 
 def test_trace_id_is_inherited_through_the_ambient_context():
     tr = Tracer()

@@ -55,6 +55,8 @@ from repro_torch.train.train_step import (TrainState, init_train_state,
                                           make_train_step)
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
+import torch_threads  # noqa: F401
+
 # depth tier: jax compiles each reference model's gradient
 pytestmark = pytest.mark.slow
 

@@ -41,6 +41,7 @@ from torch_recurrent import (F32_TOL, configs,  # noqa: F401
                              test_remat_and_no_remat_grads_are_bit_equal,
                              test_train_step_matches_reference,
                              test_trainer_checkpoints_under_the_reference_names)
+import torch_threads  # noqa: F401
 
 # depth tier: jax compiles each reference model's scans
 pytestmark = pytest.mark.slow
